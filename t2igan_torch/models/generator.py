@@ -1,0 +1,252 @@
+"""Cascaded DM-GAN generator (64 -> 128 -> 256 px), eval mode.
+
+Port of :mod:`t2igan.models.generator` for inference: batch normalisation
+uses its running statistics, and the conditioning noise ``ca_eps`` always
+comes from the caller.  The train mode (batch statistics, the memory read's
+backward kernel) is a later slice.
+
+Layout: feature maps are NCHW in ``torch.channels_last`` memory, so
+``h.permute(0, 2, 3, 1)`` hands the memory-read kernel a contiguous
+[B, H, W, C] query map without a copy.  :class:`GNet` keeps the JAX
+package's layout at its edges: word sequences [B, L, D], images out as
+[B, s, s, 3].
+
+The JAX package's ``GAN.UPBLOCK`` variants and ``GAN.PHASED_TAIL`` are
+output-equivalent rewrites of one function for XLA; the port computes that
+function in its plain form, nearest-2x upsample then conv3x3, for every
+setting.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from t2igan_torch.ops.attention import memory_read
+from t2igan_torch.ops.image import upsample_nearest_2x
+
+UPBLOCK_VARIANTS = ("dilated", "naive", "subpixel")
+
+
+def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Gated linear unit: ``a * sigmoid(b)`` over the two halves of ``dim``
+    (one fused ``F.glu`` pass)."""
+    return F.glu(x, dim=dim)
+
+
+def conv3x3(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode batch normalisation over dim 1 with eps 1e-5, always from
+    the running statistics: ``(x - running_mean) / sqrt(running_var + eps)
+    * weight + bias`` in one ``F.batch_norm`` pass."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            eps=self.eps)
+
+
+class UpBlock(nn.Module):
+    """Nearest-2x upsample, conv3x3 -> 2F, BN, GLU -> F channels."""
+
+    def __init__(self, in_features: int, features: int,
+                 variant: str = "dilated"):
+        super().__init__()
+        if variant not in UPBLOCK_VARIANTS:
+            raise ValueError(f"unknown UpBlock variant {variant!r}; expected "
+                             f"one of {UPBLOCK_VARIANTS}")
+        self.conv = conv3x3(in_features, 2 * features)
+        self.bn = BatchNorm(2 * features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return glu(self.bn(self.conv(upsample_nearest_2x(x))))
+
+
+class ResBlock(nn.Module):
+    """conv3x3 -> 2F, BN, GLU, conv3x3 -> F, BN, plus the input."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = conv3x3(features, 2 * features)
+        self.bn1 = BatchNorm(2 * features)
+        self.conv2 = conv3x3(features, features)
+        self.bn2 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = glu(self.bn1(self.conv1(x)))
+        return x + self.bn2(self.conv2(h))
+
+
+class CANet(nn.Module):
+    """Conditioning augmentation: sentence embedding -> (c, mu, logvar),
+    with ``c = mu + exp(logvar / 2) * eps``."""
+
+    def __init__(self, nef: int, condition_dim: int):
+        super().__init__()
+        self.condition_dim = condition_dim
+        self.fc = nn.Linear(nef, 4 * condition_dim)
+
+    def forward(self, sent_emb: torch.Tensor, eps: torch.Tensor):
+        x = glu(self.fc(sent_emb), dim=-1)
+        mu, logvar = x[:, :self.condition_dim], x[:, self.condition_dim:]
+        return mu + torch.exp(0.5 * logvar) * eps, mu, logvar
+
+
+class InitStageG(nn.Module):
+    """[c, z] -> [B, ngf/16, 64, 64] seed feature map."""
+
+    def __init__(self, ngf: int, in_dim: int, upblock: str = "dilated"):
+        super().__init__()
+        self.ngf = ngf
+        self.fc = nn.Linear(in_dim, ngf * 4 * 4 * 2, bias=False)
+        self.bn = BatchNorm(ngf * 4 * 4 * 2)
+        self.upsample = nn.ModuleList(
+            UpBlock(ngf // 2 ** i, ngf // 2 ** (i + 1), upblock)
+            for i in range(4))
+
+    def forward(self, z_code: torch.Tensor,
+                c_code: torch.Tensor) -> torch.Tensor:
+        x = glu(self.bn(self.fc(torch.cat([c_code, z_code], dim=-1))), dim=-1)
+        # Channel-major, as torch's view(B, ngf, 4, 4): already NCHW.
+        x = x.reshape(x.shape[0], self.ngf, 4, 4)
+        x = x.contiguous(memory_format=torch.channels_last)
+        for up in self.upsample:
+            x = up(x)
+        return x
+
+
+class NextStageG(nn.Module):
+    """Dynamic-memory refinement stage: memory write, memory read, response
+    gate, ``num_residual`` ResBlocks and a 2x UpBlock.  Sub-module names
+    follow the JAX module (``A``, ``B``, ``M_w``, ``M_r``, ``key``,
+    ``value``, ``response_gate``)."""
+
+    def __init__(self, ngf: int, nef: int, num_residual: int = 2,
+                 upblock: str = "dilated"):
+        super().__init__()
+        self.A = nn.Linear(nef, 1, bias=False)
+        self.B = nn.Linear(ngf, 1, bias=False)
+        self.M_w = nn.Linear(nef, 2 * ngf)
+        self.M_r = nn.Linear(ngf, 2 * ngf)
+        self.key = nn.Linear(2 * ngf, ngf)
+        self.value = nn.Linear(2 * ngf, ngf)
+        self.response_gate = nn.Conv2d(2 * ngf, 1, 1)
+        self.residual = nn.ModuleList(ResBlock(2 * ngf)
+                                      for _ in range(num_residual))
+        self.upsample = UpBlock(2 * ngf, ngf, upblock)
+
+    def forward(self, h_code: torch.Tensor, word_embs: torch.Tensor,
+                pad_mask: Optional[torch.Tensor], return_attn: bool = True):
+        """h_code [B, ngf, H, W]; word_embs [B, L, nef]; pad_mask [B, L]
+        bool, True at padding.  Returns (h [B, ngf, 2H, 2W], attn
+        [B, H, W, L] or None)."""
+        h_code = h_code.contiguous(memory_format=torch.channels_last)
+        # Memory writing: a per-word gate between word and image features.
+        h_avg = h_code.mean(dim=(2, 3))                              # [B, ngf]
+        gate = torch.sigmoid(self.A(word_embs) + self.B(h_avg)[:, None, :])
+        m_w = F.relu(self.M_w(word_embs))                            # [B, L, 2ngf]
+        m_r = F.relu(self.M_r(h_avg))                                # [B, 2ngf]
+        memory = m_w * gate + m_r[:, None, :] * (1.0 - gate)
+        # Key addressing and value reading.
+        key = F.relu(self.key(memory))
+        value = F.relu(self.value(memory))
+        read, attn = memory_read(h_code.permute(0, 2, 3, 1), key, value,
+                                 pad_mask, return_attn=return_attn)
+        mem_out = read.permute(0, 3, 1, 2)
+        # Key response: a per-pixel gate over [h, read].
+        gate_r = torch.sigmoid(self.response_gate(
+            torch.cat([h_code, mem_out], dim=1)))
+        h_new = h_code * (1.0 - gate_r) + gate_r * mem_out
+        h_new = torch.cat([h_new, h_new], dim=1)
+        for block in self.residual:
+            h_new = block(h_new)
+        return self.upsample(h_new), attn
+
+
+class GetImageG(nn.Module):
+    """Feature map -> RGB in [-1, 1]: conv3x3 -> 3, tanh."""
+
+    def __init__(self, ngf: int):
+        super().__init__()
+        self.conv = conv3x3(ngf, 3)
+
+    def forward(self, h_code: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.conv(h_code))
+
+
+class GNet(nn.Module):
+    """Cascaded generator, eval mode.
+
+    ``gf_dim`` = GAN.GF_DIM, ``nef`` = TEXT.EMBEDDING_DIM, ``condition_dim``
+    = GAN.CONDITION_DIM, ``z_dim`` = GAN.Z_DIM, ``branch_num`` =
+    TREE.BRANCH_NUM, ``num_residual`` = GAN.R_NUM, ``upblock`` =
+    GAN.UPBLOCK.
+    """
+
+    def __init__(self, gf_dim: int = 64, nef: int = 512,
+                 condition_dim: int = 512, z_dim: int = 100,
+                 branch_num: int = 3, num_residual: int = 2,
+                 upblock: str = "dilated"):
+        super().__init__()
+        self.ca_net = CANet(nef, condition_dim)
+        self.init_stage = InitStageG(gf_dim * 16, condition_dim + z_dim,
+                                     upblock)
+        self.next_stages = nn.ModuleList(
+            NextStageG(gf_dim, nef, num_residual, upblock)
+            for _ in range(branch_num - 1))
+        self.image_heads = nn.ModuleList(GetImageG(gf_dim)
+                                         for _ in range(branch_num))
+
+    def forward(self, z_code: torch.Tensor, sent_emb: torch.Tensor,
+                word_embs: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                ca_eps: torch.Tensor, return_attn: bool = True):
+        """Returns (fake_imgs, att_maps, mu, logvar): images [B, s, s, 3] in
+        [-1, 1] for each pyramid size, attention maps [B, H, W, L] of each
+        refinement stage (empty with ``return_attn=False``).  Inputs are
+        cast to the generator's dtype."""
+        dtype = self.ca_net.fc.weight.dtype
+        c_code, mu, logvar = self.ca_net(sent_emb.to(dtype), ca_eps.to(dtype))
+        h_code = self.init_stage(z_code.to(dtype), c_code)
+        words = word_embs.to(dtype)
+        fake_imgs = [self.image_heads[0](h_code)]
+        att_maps = []
+        for stage, head in zip(self.next_stages, self.image_heads[1:]):
+            h_code, attn = stage(h_code, words, pad_mask, return_attn)
+            fake_imgs.append(head(h_code))
+            if attn is not None:
+                att_maps.append(attn)
+        return ([img.permute(0, 2, 3, 1) for img in fake_imgs], att_maps,
+                mu, logvar)
+
+
+@torch.no_grad()
+def init_generator_(model: nn.Module,
+                    generator: torch.Generator) -> nn.Module:
+    """Random weights from ``generator``, with the JAX package's
+    initializer families: orthogonal kernels, zero biases, BN scale
+    N(1, 0.02), running mean 0 and variance 1."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            nn.init.normal_(module.weight, 1.0, 0.02, generator=generator)
+            nn.init.zeros_(module.bias)
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+        elif isinstance(module, (nn.Linear, nn.Conv2d)):
+            nn.init.orthogonal_(module.weight, generator=generator)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
+    return model
