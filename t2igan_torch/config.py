@@ -7,9 +7,10 @@ imported only inside :func:`cfg_from_file`.
 
 What the port does with the TPU-only generator switches:
 
-* ``GAN.UPBLOCK`` and ``GAN.PHASED_TAIL`` pick output-equivalent rewrites of
-  the same upsample + conv3x3 for XLA; every value computes the same
-  function, so the port accepts them and runs the plain form.
+* ``GAN.UPBLOCK``, ``GAN.PHASED_TAIL`` and ``GAN.PHASED_TAIL_TRAIN`` pick
+  output-equivalent rewrites of the same upsample + conv3x3 (+ BN, GLU, RGB
+  head) for XLA; every value computes the same function, so the port
+  accepts them and runs the plain form.
 * ``GAN.FUSED_TAIL`` selects a Pallas kernel the port has not ported yet:
   :func:`t2igan_torch.models.factory.build_generator` raises on it.
 * The ``T2IGAN_*`` environment overrides of the JAX package do not exist
@@ -93,8 +94,8 @@ class GanConfig:
     # Phase-space form of the final eval tail in the JAX package; the same
     # function as the plain tail, which is what the port runs.
     PHASED_TAIL: bool = True
-    # Train-mode counterpart of PHASED_TAIL (the port's train path is a later
-    # slice).
+    # Train-mode counterpart of PHASED_TAIL; the same function as the plain
+    # train tail, which is what the port runs.
     PHASED_TAIL_TRAIN: bool = True
 
 

@@ -1,9 +1,10 @@
 """Run configs of the port.
 
-``eval_clip_bird.yml`` is the JAX package's evaluation config, copied.
-:data:`EVAL_CLIP_BIRD` holds the same values as a dict, for scripts that run
-where ``yaml`` may be missing (``chip_smoke.py``); a test keeps the two
-equal.
+``eval_clip_bird.yml`` (evaluation) and ``clip_bird_dmgan.yml`` (GAN
+training) are the JAX package's configs, copied.  :data:`EVAL_CLIP_BIRD`
+and :data:`CLIP_BIRD_DMGAN` hold the same values as dicts, for scripts that
+run where ``yaml`` may be missing (``chip_smoke.py``); a test keeps each
+dict equal to its file.
 """
 
 EVAL_CLIP_BIRD = {
@@ -17,4 +18,20 @@ EVAL_CLIP_BIRD = {
               "CLIP_MODEL_BASE": "openai/clip-vit-base-patch32",
               "NET_G": "models/netG_bird", "B_NET_D": False,
               "BATCH_SIZE": 10},
+}
+
+CLIP_BIRD_DMGAN = {
+    "CONFIG_NAME": "DMGAN", "DATASET_NAME": "birds", "DATA_DIR": "data/birds",
+    "GPU_ID": 0, "WORKERS": 2, "CUDA": True,
+    "TREE": {"BRANCH_NUM": 3},
+    "GAN": {"DF_DIM": 32, "GF_DIM": 64, "Z_DIM": 100, "R_NUM": 2},
+    "TEXT": {"EMBEDDING_DIM": 512, "CAPTIONS_PER_IMAGE": 10},
+    "TRAIN": {"FLAG": True,
+              "CLIP_MODEL_CHECKPOINT": "output/birds_DAMSM_CLIP/Model/clip45",
+              "CLIP_MODEL_BASE": "openai/clip-vit-base-patch32",
+              "NET_G": "", "B_NET_D": True, "BATCH_SIZE": 4,
+              "MAX_EPOCH": 800, "SNAPSHOT_INTERVAL": 50,
+              "DISCRIMINATOR_LR": 0.0002, "GENERATOR_LR": 0.0002,
+              "SMOOTH": {"GAMMA1": 4.0, "GAMMA2": 5.0, "GAMMA3": 10.0,
+                         "LAMBDA": 10.0}},
 }

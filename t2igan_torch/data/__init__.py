@@ -1,1 +1,1 @@
-"""Text input for the port: the CLIP tokenizer."""
+"""Input for the port: the CLIP tokenizer and the synthetic dataset."""

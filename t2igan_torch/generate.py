@@ -27,7 +27,7 @@ import torch
 from t2igan_torch.config import Config, cfg_from_file
 from t2igan_torch.data.tokenizer import ClipTokenizer
 from t2igan_torch.models.clip import (ClipConfig, ClipWithRegionHead,
-                                      init_clip_text_)
+                                      init_clip_)
 from t2igan_torch.models.factory import build_generator
 from t2igan_torch.models.generator import init_generator_
 from t2igan_torch.ops.image import uint8_from_tanh
@@ -55,10 +55,10 @@ def write_png(path: str, rgb: np.ndarray) -> None:
 
 def build_models(cfg: Config, seed: int, device: torch.device,
                  dtype: torch.dtype, clip_cfg: ClipConfig = ClipConfig()):
-    """The CLIP text side and the generator with random weights from
+    """CLIP and the generator with random weights from
     ``seed``, on ``device`` in ``dtype``, feature maps channels-last."""
     rng = torch.Generator().manual_seed(seed)
-    clip = init_clip_text_(ClipWithRegionHead(clip_cfg), rng)
+    clip = init_clip_(ClipWithRegionHead(clip_cfg), rng)
     gen = init_generator_(build_generator(cfg), rng)
     clip = clip.to(device=device, dtype=dtype).eval()
     gen = gen.to(device=device, dtype=dtype,

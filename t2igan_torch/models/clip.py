@@ -1,4 +1,4 @@
-"""CLIP ViT-B/32 text tower (port of the text half of
+"""CLIP ViT-B/32 text and vision towers with the region head (port of
 :mod:`t2igan.models.clip`).
 
 Semantics kept from the JAX package:
@@ -9,14 +9,18 @@ Semantics kept from the JAX package:
   padded key above the diagonal sums to -inf in f32, as it does in JAX;
 * token ids are clamped into the vocabulary;
 * the sentence vector is the final-LayerNorm state at the first <eos>,
-  through the text projection.
-
-The vision tower and the region head are a later slice.
+  through the text projection;
+* the patch embedding is space-to-depth plus one matmul with a
+  [p, p, C, D] kernel, the JAX package's layout;
+* image regions are the vision tower's last hidden states (before the
+  post-LayerNorm) through ``linear_subr``; the image vector is the
+  post-LayerNormed CLS state through the visual projection.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -136,17 +140,73 @@ class TextTower(nn.Module):
         return x, pooled
 
 
+class PatchEmbed(nn.Module):
+    """ViT patch embedding as space-to-depth and one matmul; ``kernel`` is
+    [p, p, C, D], as the JAX module's (and a stride-p conv's HWIO)."""
+
+    def __init__(self, channels: int, hidden: int, patch: int):
+        super().__init__()
+        self.patch = patch
+        self.kernel = nn.Parameter(torch.empty(patch, patch, channels,
+                                               hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C] -> [B, (H/p)(W/p), D]."""
+        b, h, w, cc = x.shape
+        p = self.patch
+        if h % p or w % p:
+            raise ValueError(f"image {h}x{w} is not a multiple of the "
+                             f"patch size {p}")
+        x = x.reshape(b, h // p, p, w // p, p, cc).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, (h // p) * (w // p), p * p * cc)
+        return x @ self.kernel.reshape(p * p * cc, -1)
+
+
+class VisionTower(nn.Module):
+    """CLIP ViT producing (last_hidden [B, 1+P, D], post-LN CLS [B, D])."""
+
+    def __init__(self, cfg: ClipConfig):
+        super().__init__()
+        c = cfg.vision
+        self.patch_embedding = PatchEmbed(3, c.hidden_size, cfg.patch_size)
+        self.class_embedding = nn.Parameter(torch.empty(c.hidden_size))
+        n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.position_embedding = nn.Parameter(torch.empty(n_pos,
+                                                           c.hidden_size))
+        self.pre_layrnorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.layers = nn.ModuleList(EncoderLayer(c)
+                                    for _ in range(c.num_layers))
+        self.post_layernorm = nn.LayerNorm(c.hidden_size,
+                                           eps=c.layer_norm_eps)
+
+    def forward(self, pixel_values: torch.Tensor):
+        """pixel_values: [B, H, W, 3] NHWC."""
+        patches = self.patch_embedding(pixel_values)
+        b, _, d = patches.shape
+        cls = self.class_embedding.to(patches.dtype).expand(b, 1, d)
+        x = torch.cat([cls, patches], dim=1)
+        x = x + self.position_embedding[:x.shape[1]].to(x.dtype)
+        x = self.pre_layrnorm(x)
+        for layer in self.layers:
+            x = layer(x)
+        return x, self.post_layernorm(x[:, 0])
+
+
 class ClipWithRegionHead(nn.Module):
-    """The joint encoder's text side: the text tower and the text
-    projection.  The vision tower, visual projection and region head of the
-    JAX module are not ported yet."""
+    """The joint encoder: CLIP's text and vision towers, their projections,
+    the ``linear_subr`` region head and ``logit_scale``."""
 
     def __init__(self, cfg: ClipConfig = ClipConfig()):
         super().__init__()
         self.cfg = cfg
         self.text_model = TextTower(cfg)
+        self.vision_model = VisionTower(cfg)
         self.text_projection = nn.Linear(cfg.text.hidden_size,
                                          cfg.projection_dim, bias=False)
+        self.visual_projection = nn.Linear(cfg.vision.hidden_size,
+                                           cfg.projection_dim, bias=False)
+        self.linear_subr = nn.Linear(cfg.vision.hidden_size, cfg.region_dim)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def encode_text_verbose(self, input_ids: torch.Tensor,
                             attention_mask: Optional[torch.Tensor] = None):
@@ -155,22 +215,33 @@ class ClipWithRegionHead(nn.Module):
         words, pooled = self.text_model(input_ids, attention_mask)
         return words, self.text_projection(pooled)
 
+    def encode_image_verbose(self, pixel_values: torch.Tensor):
+        """(region_enc [B, 1+P, region_dim], image_enc [B, projection_dim])
+        from NHWC pixels: ``linear_subr`` of the last hidden states and the
+        visual projection of the post-LN CLS state."""
+        hidden, pooled = self.vision_model(pixel_values)
+        return self.linear_subr(hidden), self.visual_projection(pooled)
+
 
 @torch.no_grad()
-def init_clip_text_(model: ClipWithRegionHead,
-                    generator: torch.Generator) -> ClipWithRegionHead:
+def init_clip_(model: ClipWithRegionHead,
+               generator: torch.Generator) -> ClipWithRegionHead:
     """Random weights from ``generator``, with the JAX package's
-    initializer families: N(0, 0.02) embeddings, lecun-normal dense
-    kernels, zero biases, unit LayerNorms."""
+    initializer families: N(0, 0.02) embeddings, lecun-normal dense and
+    patch kernels (std ``fan_in ** -0.5``), zero biases, unit LayerNorms,
+    ``logit_scale = log(1 / 0.07)``."""
     for name, p in model.named_parameters():
-        if name.endswith("embedding.weight") or name.endswith(
-                "position_embedding"):
+        if name == "logit_scale":
+            p.fill_(math.log(1.0 / 0.07))
+        elif name.endswith(("embedding.weight", "position_embedding",
+                            "class_embedding")):
             nn.init.normal_(p, 0.0, 0.02, generator=generator)
-        elif "layer_norm" in name and name.endswith("weight"):
+        elif "norm" in name.split(".")[-2] and name.endswith("weight"):
             nn.init.ones_(p)
         elif name.endswith("bias"):
             nn.init.zeros_(p)
         else:
-            nn.init.normal_(p, 0.0, p.shape[1] ** -0.5, generator=generator)
+            fan_in = p[..., 0].numel() if p.dim() == 4 else p.shape[1]
+            nn.init.normal_(p, 0.0, fan_in ** -0.5, generator=generator)
     return model
 

@@ -9,11 +9,18 @@ modules in place:
 * CLIP's fused ``qkv_proj`` kernel [d, 3, d] / bias [3, d] -> the fused
   Linear(d, 3d) with q, k and v stacked on its output rows;
 * BatchNorm params ``scale``/``bias`` and batch_stats ``mean``/``var`` ->
-  weight/bias/running_mean/running_var.
+  weight/bias/running_mean/running_var;
+* spectral-norm conv kernels like conv kernels, and the ``spectral``
+  collection's ``u``/``v`` -> the ``SNConv`` buffers (``v`` keeps the JAX
+  (kh, kw, in) order).
 
-A missing or mis-shaped variable raises, and so does a variable of the
-generator (or of the CLIP text side) that no module took: that is a config
-mismatch, such as another branch count.
+A missing or mis-shaped variable raises, and so does a variable that no
+module took (beyond the vision side for :func:`load_jax_clip_text`): that
+is a config mismatch, such as another branch count.
+
+The tests compare the port's state after a step with the JAX package's by
+loading the JAX result into a second port module with these loaders and
+comparing the two ``state_dict``s; there is no port -> JAX direction.
 """
 
 from __future__ import annotations
@@ -24,14 +31,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from t2igan_torch.models.clip import ClipWithRegionHead, EncoderLayer
+from t2igan_torch.models.clip import (ClipWithRegionHead, EncoderLayer,
+                                      TextTower, VisionTower)
+from t2igan_torch.models.discriminator import DGetLogits, DNetWithHeads
 from t2igan_torch.models.generator import (BatchNorm, CANet, GetImageG, GNet,
                                            InitStageG, NextStageG, ResBlock,
                                            UpBlock)
+from t2igan_torch.ops.spectral import SNConv
 
 Path = Tuple[str, ...]
 
-# Top-level CLIP params of the vision side, which the port does not hold yet.
+# Top-level CLIP params of the vision side, which load_jax_clip_text skips.
 _CLIP_VISION_KEYS = ("vision_model", "visual_projection", "linear_subr",
                      "logit_scale")
 
@@ -95,6 +105,14 @@ class _Loader:
                          (bn.running_mean, s + ("mean",)),
                          (bn.running_var, s + ("var",))):
             self.copy(dst, self.get(src), src)
+
+    def sn_conv(self, conv: SNConv, path: Path) -> None:
+        """``path`` below the collection: params/<path>/{kernel, bias} and
+        spectral/<path>/{u, v}."""
+        self.conv(conv, ("params",) + path)
+        s = ("spectral",) + path
+        self.copy(conv.u, self.get(s + ("u",)), s + ("u",))
+        self.copy(conv.v, self.get(s + ("v",)), s + ("v",))
 
     def check_all_used(self, ignore: Tuple[str, ...] = ()) -> None:
         unused = [p for p in _leaves(self.tree)
@@ -190,22 +208,84 @@ def _encoder_layer(ld: _Loader, m: EncoderLayer, path: Path) -> None:
     ld.dense(m.fc2, path + ("fc2",))
 
 
+def _text_tower(ld: _Loader, text: TextTower) -> None:
+    p = ("text_model",)
+    ld.copy(text.token_embedding.weight,
+            ld.get(p + ("token_embedding", "embedding")),
+            p + ("token_embedding", "embedding"))
+    ld.copy(text.position_embedding, ld.get(p + ("position_embedding",)),
+            p + ("position_embedding",))
+    for i, layer in enumerate(text.layers):
+        _encoder_layer(ld, layer, p + (f"layers_{i}",))
+    ld.layer_norm(text.final_layer_norm, p + ("final_layer_norm",))
+
+
+def _vision_tower(ld: _Loader, vision: VisionTower) -> None:
+    p = ("vision_model",)
+    for dst, name in ((vision.patch_embedding.kernel,
+                       ("patch_embedding", "kernel")),
+                      (vision.class_embedding, ("class_embedding",)),
+                      (vision.position_embedding, ("position_embedding",))):
+        ld.copy(dst, ld.get(p + name), p + name)
+    ld.layer_norm(vision.pre_layrnorm, p + ("pre_layrnorm",))
+    for i, layer in enumerate(vision.layers):
+        _encoder_layer(ld, layer, p + (f"layers_{i}",))
+    ld.layer_norm(vision.post_layernorm, p + ("post_layernorm",))
+
+
 @torch.no_grad()
 def load_jax_clip_text(module: ClipWithRegionHead,
                        params: Mapping[str, Any]) -> ClipWithRegionHead:
-    """Fill ``module`` from the JAX ``ClipWithRegionHead`` params tree (the
-    ``"params"`` collection).  Vision-side entries are ignored."""
+    """Fill the text side of ``module`` (text tower and projection) from
+    the JAX ``ClipWithRegionHead`` params tree (the ``"params"``
+    collection).  Vision-side entries are ignored."""
     ld = _Loader(params)
-    text = module.text_model
-    ld.copy(text.token_embedding.weight,
-            ld.get(("text_model", "token_embedding", "embedding")),
-            ("text_model", "token_embedding", "embedding"))
-    ld.copy(text.position_embedding,
-            ld.get(("text_model", "position_embedding")),
-            ("text_model", "position_embedding"))
-    for i, layer in enumerate(text.layers):
-        _encoder_layer(ld, layer, ("text_model", f"layers_{i}"))
-    ld.layer_norm(text.final_layer_norm, ("text_model", "final_layer_norm"))
+    _text_tower(ld, module.text_model)
     ld.dense(module.text_projection, ("text_projection",))
     ld.check_all_used(ignore=_CLIP_VISION_KEYS)
+    return module
+
+
+@torch.no_grad()
+def load_jax_clip(module: ClipWithRegionHead,
+                  params: Mapping[str, Any]) -> ClipWithRegionHead:
+    """Fill all of ``module`` (both towers, both projections,
+    ``linear_subr`` and ``logit_scale``) from the JAX
+    ``ClipWithRegionHead`` params tree; every entry must be taken."""
+    ld = _Loader(params)
+    _text_tower(ld, module.text_model)
+    _vision_tower(ld, module.vision_model)
+    ld.dense(module.text_projection, ("text_projection",))
+    ld.dense(module.visual_projection, ("visual_projection",))
+    ld.dense(module.linear_subr, ("linear_subr",))
+    ld.copy(module.logit_scale, ld.get(("logit_scale",)), ("logit_scale",))
+    ld.check_all_used()
+    return module
+
+
+def _d_head(ld: _Loader, head: DGetLogits, path: Path) -> None:
+    if head.joint is not None:
+        ld.sn_conv(head.joint.conv, path + ("Block3x3Leaky_0", "SNConv_0"))
+    ld.conv(head.conv, ("params",) + path + ("Conv_0",))
+
+
+@torch.no_grad()
+def load_jax_discriminator(module: DNetWithHeads,
+                           variables: Mapping[str, Any]) -> DNetWithHeads:
+    """Fill ``module`` from the variables ``{"params": ..., "spectral":
+    ...}`` of the JAX ``DNetWithHeads`` of the same size; every entry must
+    be taken."""
+    ld = _Loader(variables)
+    trunk = module.trunk
+    for i, block in enumerate(trunk.encode.blocks):
+        ld.sn_conv(block.conv, ("trunk", "Encode16x_0", f"DownBlock_{i}",
+                                "SNConv_0"))
+    for i, block in enumerate(trunk.down):
+        ld.sn_conv(block.conv, ("trunk", f"DownBlock_{i}", "SNConv_0"))
+    for i, block in enumerate(trunk.blocks):
+        ld.sn_conv(block.conv, ("trunk", f"Block3x3Leaky_{i}", "SNConv_0"))
+    _d_head(ld, module.cond_head, ("cond_head",))
+    if module.uncond_head is not None:
+        _d_head(ld, module.uncond_head, ("uncond_head",))
+    ld.check_all_used()
     return module

@@ -1,9 +1,11 @@
-"""Cascaded DM-GAN generator (64 -> 128 -> 256 px), eval mode.
+"""Cascaded DM-GAN generator (64 -> 128 -> 256 px).
 
-Port of :mod:`t2igan.models.generator` for inference: batch normalisation
-uses its running statistics, and the conditioning noise ``ca_eps`` always
-comes from the caller.  The train mode (batch statistics, the memory read's
-backward kernel) is a later slice.
+Port of :mod:`t2igan.models.generator`.  With ``train=False`` batch
+normalisation uses its running statistics; with ``train=True`` it
+normalises with the batch statistics and updates the running ones as flax
+does (:class:`BatchNorm`), and the memory read passes gradients through
+the backward kernel.  The conditioning noise ``ca_eps`` always comes from
+the caller.
 
 Layout: feature maps are NCHW in ``torch.channels_last`` memory, so
 ``h.permute(0, 2, 3, 1)`` hands the memory-read kernel a contiguous
@@ -11,10 +13,10 @@ Layout: feature maps are NCHW in ``torch.channels_last`` memory, so
 package's layout at its edges: word sequences [B, L, D], images out as
 [B, s, s, 3].
 
-The JAX package's ``GAN.UPBLOCK`` variants and ``GAN.PHASED_TAIL`` are
-output-equivalent rewrites of one function for XLA; the port computes that
-function in its plain form, nearest-2x upsample then conv3x3, for every
-setting.
+The JAX package's ``GAN.UPBLOCK`` variants, ``GAN.PHASED_TAIL`` and
+``GAN.PHASED_TAIL_TRAIN`` are output-equivalent rewrites of one function
+for XLA; the port computes that function in its plain form, nearest-2x
+upsample then conv3x3 (then BN, GLU, RGB conv, tanh), for every setting.
 """
 
 from __future__ import annotations
@@ -42,9 +44,17 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch normalisation over dim 1 with eps 1e-5, always from
-    the running statistics: ``(x - running_mean) / sqrt(running_var + eps)
-    * weight + bias`` in one ``F.batch_norm`` pass."""
+    """Batch normalisation over dim 1 with eps 1e-5 and momentum 0.9, as
+    the JAX package's flax ``nn.BatchNorm``.
+
+    ``train=False``: ``(x - running_mean) / sqrt(running_var + eps) *
+    weight + bias`` in one ``F.batch_norm`` pass.  ``train=True``: the
+    batch mean and the biased variance ``max(0, E[x^2] - E[x]^2)`` in f32
+    (flax's ``_compute_stats``) normalise ``x``, and the running statistics
+    become ``0.9 * running + 0.1 * batch``.  ``F.batch_norm(training=True)``
+    would put the unbiased variance, n / (n - 1) larger, into
+    ``running_var``.  The output has ``x``'s dtype.
+    """
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -54,10 +64,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+            self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class UpBlock(nn.Module):
@@ -72,8 +94,8 @@ class UpBlock(nn.Module):
         self.conv = conv3x3(in_features, 2 * features)
         self.bn = BatchNorm(2 * features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return glu(self.bn(self.conv(upsample_nearest_2x(x))))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return glu(self.bn(self.conv(upsample_nearest_2x(x)), train))
 
 
 class ResBlock(nn.Module):
@@ -86,9 +108,9 @@ class ResBlock(nn.Module):
         self.conv2 = conv3x3(features, features)
         self.bn2 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = glu(self.bn1(self.conv1(x)))
-        return x + self.bn2(self.conv2(h))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = glu(self.bn1(self.conv1(x), train))
+        return x + self.bn2(self.conv2(h), train)
 
 
 class CANet(nn.Module):
@@ -118,14 +140,15 @@ class InitStageG(nn.Module):
             UpBlock(ngf // 2 ** i, ngf // 2 ** (i + 1), upblock)
             for i in range(4))
 
-    def forward(self, z_code: torch.Tensor,
-                c_code: torch.Tensor) -> torch.Tensor:
-        x = glu(self.bn(self.fc(torch.cat([c_code, z_code], dim=-1))), dim=-1)
+    def forward(self, z_code: torch.Tensor, c_code: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        x = glu(self.bn(self.fc(torch.cat([c_code, z_code], dim=-1)), train),
+                dim=-1)
         # Channel-major, as torch's view(B, ngf, 4, 4): already NCHW.
         x = x.reshape(x.shape[0], self.ngf, 4, 4)
         x = x.contiguous(memory_format=torch.channels_last)
         for up in self.upsample:
-            x = up(x)
+            x = up(x, train)
         return x
 
 
@@ -150,13 +173,15 @@ class NextStageG(nn.Module):
         self.upsample = UpBlock(2 * ngf, ngf, upblock)
 
     def forward(self, h_code: torch.Tensor, word_embs: torch.Tensor,
-                pad_mask: Optional[torch.Tensor], return_attn: bool = True):
+                pad_mask: Optional[torch.Tensor], return_attn: bool = True,
+                train: bool = False):
         """h_code [B, ngf, H, W]; word_embs [B, L, nef]; pad_mask [B, L]
         bool, True at padding.  Returns (h [B, ngf, 2H, 2W], attn
         [B, H, W, L] or None)."""
         h_code = h_code.contiguous(memory_format=torch.channels_last)
         # Memory writing: a per-word gate between word and image features.
-        h_avg = h_code.mean(dim=(2, 3))                              # [B, ngf]
+        # The pooled state passes no gradient, as in the JAX package.
+        h_avg = h_code.mean(dim=(2, 3)).detach()                     # [B, ngf]
         gate = torch.sigmoid(self.A(word_embs) + self.B(h_avg)[:, None, :])
         m_w = F.relu(self.M_w(word_embs))                            # [B, L, 2ngf]
         m_r = F.relu(self.M_r(h_avg))                                # [B, 2ngf]
@@ -173,8 +198,8 @@ class NextStageG(nn.Module):
         h_new = h_code * (1.0 - gate_r) + gate_r * mem_out
         h_new = torch.cat([h_new, h_new], dim=1)
         for block in self.residual:
-            h_new = block(h_new)
-        return self.upsample(h_new), attn
+            h_new = block(h_new, train)
+        return self.upsample(h_new, train), attn
 
 
 class GetImageG(nn.Module):
@@ -189,7 +214,7 @@ class GetImageG(nn.Module):
 
 
 class GNet(nn.Module):
-    """Cascaded generator, eval mode.
+    """Cascaded generator.
 
     ``gf_dim`` = GAN.GF_DIM, ``nef`` = TEXT.EMBEDDING_DIM, ``condition_dim``
     = GAN.CONDITION_DIM, ``z_dim`` = GAN.Z_DIM, ``branch_num`` =
@@ -213,19 +238,21 @@ class GNet(nn.Module):
 
     def forward(self, z_code: torch.Tensor, sent_emb: torch.Tensor,
                 word_embs: torch.Tensor, pad_mask: Optional[torch.Tensor],
-                ca_eps: torch.Tensor, return_attn: bool = True):
+                ca_eps: torch.Tensor, return_attn: bool = True,
+                train: bool = False):
         """Returns (fake_imgs, att_maps, mu, logvar): images [B, s, s, 3] in
         [-1, 1] for each pyramid size, attention maps [B, H, W, L] of each
         refinement stage (empty with ``return_attn=False``).  Inputs are
-        cast to the generator's dtype."""
+        cast to the generator's dtype.  ``train=True`` normalises with
+        batch statistics and updates the running ones."""
         dtype = self.ca_net.fc.weight.dtype
         c_code, mu, logvar = self.ca_net(sent_emb.to(dtype), ca_eps.to(dtype))
-        h_code = self.init_stage(z_code.to(dtype), c_code)
+        h_code = self.init_stage(z_code.to(dtype), c_code, train)
         words = word_embs.to(dtype)
         fake_imgs = [self.image_heads[0](h_code)]
         att_maps = []
         for stage, head in zip(self.next_stages, self.image_heads[1:]):
-            h_code, attn = stage(h_code, words, pad_mask, return_attn)
+            h_code, attn = stage(h_code, words, pad_mask, return_attn, train)
             fake_imgs.append(head(h_code))
             if attn is not None:
                 att_maps.append(attn)

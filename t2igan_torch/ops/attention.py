@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from t2igan_torch.ops.kernels.memory_read import NEG_INF, memory_read_fused
+from t2igan_torch.ops.kernels.memory_read import NEG_INF, MemoryRead
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -59,13 +59,15 @@ def memory_read(query_map: torch.Tensor, key: torch.Tensor,
     at padding, or None.  Returns (read [B, H, W, C] in ``query_map``'s
     dtype, attn [B, H, W, L] f32 or None).
 
-    ``return_attn=False`` is the sampler's path: on a CUDA tensor it
-    launches the memory-read kernel (K1), on a CPU tensor it runs the plain
-    version.  ``return_attn=True`` (visualisation) computes the maps with
-    plain einsums, as the JAX package does.
+    ``return_attn=False`` is the sampler's and the train step's path,
+    :class:`MemoryRead`: on a CUDA tensor it launches the forward kernel
+    (K1) and, for gradients to q, k and v, the backward kernel (K2); on a
+    CPU tensor it runs their plain versions.  ``return_attn=True``
+    (visualisation) computes the maps with plain einsums, as the JAX
+    package does.
     """
     if not return_attn:
-        return memory_read_fused(query_map, key, value, pad_mask), None
+        return MemoryRead.apply(query_map, key, value, pad_mask), None
     b, h, w, c = query_map.shape
     q = query_map.reshape(b, h * w, c).float()
     logits = torch.einsum("bqc,blc->bql", q, key.float())

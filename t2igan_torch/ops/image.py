@@ -1,6 +1,6 @@
-"""Image helpers of the sampler path (port of part of
+"""Image helpers of the sampler and train paths (port of part of
 :mod:`t2igan.ops.image`).  Feature maps are NCHW here, as PyTorch's
-convolutions take them; images leave the sampler as NHWC."""
+convolutions take them; images leave the generator as NHWC."""
 
 from __future__ import annotations
 
@@ -17,3 +17,13 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 def uint8_from_tanh(img: torch.Tensor) -> torch.Tensor:
     """[-1, 1] float -> [0, 255] uint8, truncating as the JAX package does."""
     return torch.clamp((img.float() + 1.0) * 127.5, 0, 255).to(torch.uint8)
+
+
+def resize_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Nearest resize of an NHWC batch to (size, size): the source pixel of
+    output i is ``floor((i + 0.5) * in / out)``, as ``jax.image.resize``
+    takes it, which is torch's ``"nearest-exact"`` (its ``"nearest"``
+    floors ``i * in / out`` and picks other rows)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
+                      mode="nearest-exact")
+    return y.permute(0, 2, 3, 1)

@@ -26,6 +26,9 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Every CUDA source of the port; the first load builds them all at once.
+SOURCES = ("memory_read", "memory_read_bwd")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -88,10 +91,11 @@ def build(names: Iterable[str]) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``.  The first call builds
+    every source in :data:`SOURCES` not built yet, in parallel."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(dict.fromkeys((*SOURCES, name)))
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -1,1 +1,1 @@
-"""Inference and (in later slices) training steps of the port."""
+"""The sampler, the adversarial train step, its state and the trainer."""

@@ -1,14 +1,173 @@
-"""Inference step of the port (``t2igan.train.steps.make_sampler``)."""
+"""Train and inference steps of the port (``t2igan.train.steps``): the
+adversarial GAN step and the sampler."""
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from t2igan_torch.config import Config
+from t2igan_torch.losses import (discriminator_loss, generator_adv_loss,
+                                 kl_loss, nt_xent_loss, sent_loss,
+                                 words_loss, wrong_pair)
 from t2igan_torch.models.clip import ClipWithRegionHead
 from t2igan_torch.models.generator import GNet
+from t2igan_torch.ops.attention import l2_normalize
+from t2igan_torch.ops.image import resize_nearest
+from t2igan_torch.train.state import GanTrainState, ema_update
+
+
+EMA_DECAY = 0.999  # the G EMA's mixing rate
+
+
+def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
+                  dtype: torch.dtype = torch.float32) -> Callable[..., Dict]:
+    """The adversarial step, as ``t2igan.train.steps.make_gan_step``.
+
+    The returned ``step(state, batch, z=None, eps1=None, eps2=None,
+    generator=None)`` updates ``state`` in place and returns the metrics
+    as 0-dim tensors.  ``batch`` holds ``images`` (one [B, s, s, 3] array
+    or tensor per pyramid size), ``ids``/``mask`` and ``ids_2``/``mask_2``
+    (the two caption views, mask 1 at real tokens) and ``class_ids``.
+    ``z`` [B, Z_DIM] and the conditioning noise ``eps1``/``eps2``
+    [B, CONDITION_DIM] are drawn from the ``torch.Generator`` ``generator``
+    when not given.  One step:
+
+    1. both caption views through the text tower in one [2B] apply, with
+       no gradient;
+    2. one G forward per view in train mode (shared z; batch statistics
+       update for view 1, then view 2);
+    3. per scale, the discriminator update on the detached fakes: one
+       trunk apply over [real, fake1, fake2], the only one that stores the
+       spectral-norm vectors, the heads (wrong pair by a roll of the
+       sentences), then the D optimizer;
+    4. G's loss against the updated discriminators: 2 * the adversarial
+       BCE over one [2B] trunk apply per scale, the DAMSM word and
+       sentence terms of both views through one [2B] apply of the frozen
+       CLIP vision tower on the 256->224 nearest-resized finest fakes, KL
+       for both views and 0.2 * NT-Xent of the two image codes; gradients
+       reach G only;
+    5. the G optimizer, then the EMA.
+
+    ``dtype=torch.bfloat16`` runs the forwards under ``torch.autocast``
+    (parameters, optimizer state and EMA stay f32); losses are f32.
+    """
+    g1 = cfg.TRAIN.SMOOTH.GAMMA1
+    g2 = cfg.TRAIN.SMOOTH.GAMMA2
+    g3 = cfg.TRAIN.SMOOTH.GAMMA3
+    lam = cfg.TRAIN.SMOOTH.LAMBDA
+    clip_size = clip.cfg.image_size
+
+    def step(state: GanTrainState, batch, z: Optional[torch.Tensor] = None,
+             eps1: Optional[torch.Tensor] = None,
+             eps2: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> Dict:
+        gen = state.gen
+        device = next(gen.parameters()).device
+
+        def amp():
+            return torch.autocast(device.type, dtype=torch.bfloat16,
+                                  enabled=dtype == torch.bfloat16)
+
+        def put(x):
+            return torch.as_tensor(x, device=device)
+
+        ids, mask = put(batch["ids"]), put(batch["mask"])
+        ids2, mask2 = put(batch["ids_2"]), put(batch["mask_2"])
+        cls = put(batch["class_ids"])
+        images = [put(x).float() for x in batch["images"]]
+        b = ids.shape[0]
+        noise = []
+        for t, dim in ((z, cfg.GAN.Z_DIM), (eps1, cfg.GAN.CONDITION_DIM),
+                       (eps2, cfg.GAN.CONDITION_DIM)):
+            if t is None:
+                if generator is None:
+                    raise ValueError("pass z, eps1 and eps2, or a "
+                                     "torch.Generator to draw them from")
+                t = torch.randn((b, dim), generator=generator,
+                                device=generator.device)
+            noise.append(put(t).float())
+        z, eps1, eps2 = noise
+
+        with torch.no_grad(), amp():
+            words, sent = clip.encode_text_verbose(torch.cat([ids, ids2]),
+                                                   torch.cat([mask, mask2]))
+        words1, words2 = words.chunk(2)
+        sent1, sent2 = sent.chunk(2)
+        with amp():
+            f1, _, mu1, lv1 = gen(z, sent1, words1, mask == 0, eps1,
+                                  return_attn=False, train=True)
+            f2, _, mu2, lv2 = gen(z, sent2, words2, mask2 == 0, eps2,
+                                  return_attn=False, train=True)
+
+        metrics: Dict[str, torch.Tensor] = {}
+        for i, (d, opt) in enumerate(zip(state.ds, state.d_opts)):
+            with amp():
+                x = torch.cat([images[i], f1[i].detach().float(),
+                               f2[i].detach().float()])
+                h_r, h_f1, h_f2 = d.features(x, update_spectral=True).chunk(3)
+                uncond = d.uncond_head is not None
+                logits = [d.cond(h_r, sent1), d.cond(h_f1, sent1),
+                          d.cond(h_r, wrong_pair(sent1)),
+                          d.uncond(h_r) if uncond else None,
+                          d.uncond(h_f1) if uncond else None,
+                          d.cond(h_r, sent2), d.cond(h_f2, sent2),
+                          d.cond(h_r, wrong_pair(sent2)),
+                          d.uncond(h_r) if uncond else None,
+                          d.uncond(h_f2) if uncond else None]
+            loss1, aux = discriminator_loss(*logits[:5])
+            loss2, _ = discriminator_loss(*logits[5:])
+            d_loss = loss1 + loss2
+            params = [p for p in d.parameters() if p.requires_grad]
+            for p, g in zip(params, torch.autograd.grad(d_loss, params)):
+                p.grad = g
+            opt.step()
+            metrics[f"d_loss{i}"] = d_loss.detach()
+            metrics[f"real_acc{i}"] = aux["real_acc"].detach()
+            metrics[f"fake_acc{i}"] = aux["fake_acc"].detach()
+
+        sent12 = torch.cat([sent1, sent2])
+        adv = 0.0
+        for i, d in enumerate(state.ds):
+            with amp():
+                h = d.features(torch.cat([f1[i], f2[i]]))
+                cond = d.cond(h, sent12)
+                uncond = d.uncond(h) if d.uncond_head is not None else None
+            adv = adv + 2.0 * generator_adv_loss(cond, uncond)
+        with amp():
+            resized = resize_nearest(torch.cat([f1[-1], f2[-1]]), clip_size)
+            subr12, img12 = clip.encode_image_verbose(resized)
+        regions1, regions2 = subr12[:, 1:].float().chunk(2)
+        cnn1, cnn2 = img12.float().chunk(2)
+
+        def damsm_terms(regions, img_code, words, mask, sent):
+            wl0, wl1 = words_loss(regions, words, cls, mask > 0, g1, g2, g3)
+            sl0, sl1 = sent_loss(img_code, sent, cls, g3)
+            return (wl0 + wl1) * lam, (sl0 + sl1) * lam
+
+        w_a, s_a = damsm_terms(regions1, cnn1, words1, mask, sent1)
+        w_b, s_b = damsm_terms(regions2, cnn2, words2, mask2, sent2)
+        kl = kl_loss(mu1, lv1) + kl_loss(mu2, lv2)
+        contrast = 0.2 * nt_xent_loss(l2_normalize(cnn1),
+                                      l2_normalize(cnn2), 0.5)
+        total = adv + w_a + w_b + s_a + s_b + kl + contrast
+
+        params = [p for p in gen.parameters() if p.requires_grad]
+        for p, g in zip(params, torch.autograd.grad(total, params)):
+            p.grad = g
+        state.g_opt.step()
+        ema_update(state.gen_ema, gen, EMA_DECAY)
+        state.step += 1
+
+        metrics["g_loss"] = total.detach()
+        for name, val in (("g_adv", adv), ("w_loss", w_a + w_b),
+                          ("s_loss", s_a + s_b), ("kl_loss", kl),
+                          ("contrastive", contrast)):
+            metrics[name] = val.detach()
+        return metrics
+
+    return step
 
 
 def make_sampler(cfg: Config, clip: ClipWithRegionHead,

@@ -1,6 +1,7 @@
-"""The port's package boundary: config and tokenizer copies agree with the
-JAX package's, the package and ``chip_smoke.py`` import nothing of JAX or
-``t2igan``, and ``chip_smoke.py`` refuses to run without a card."""
+"""The port's package boundary: config, tokenizer and YAML copies agree
+with the JAX package's, the package and ``chip_smoke.py`` import nothing
+of JAX or ``t2igan``, and ``chip_smoke.py`` refuses to run without a
+card."""
 
 import ast
 import dataclasses
@@ -69,6 +70,23 @@ def test_eval_config_dict_is_the_packaged_yaml():
         tconfig.cfg_from_file(str(path))
 
 
+def test_packaged_train_config_is_the_jax_one():
+    src = REPO / "t2igan" / "configs" / "clip_bird_dmgan.yml"
+    assert (PORT / "configs" / "clip_bird_dmgan.yml").read_text() == \
+        src.read_text()
+
+
+def test_train_config_dict_is_the_packaged_yaml():
+    import yaml
+
+    from t2igan_torch.configs import CLIP_BIRD_DMGAN
+
+    path = PORT / "configs" / "clip_bird_dmgan.yml"
+    assert CLIP_BIRD_DMGAN == yaml.safe_load(path.read_text())
+    assert tconfig.cfg_from_dict(CLIP_BIRD_DMGAN) == \
+        tconfig.cfg_from_file(str(path))
+
+
 def _assert_same_tokens(ours, ref, captions):
     a, b = ours(captions, max_length=77), ref(captions, max_length=77)
     np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
@@ -116,6 +134,16 @@ def _imported_roots(path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_nothing_of_jax_or_t2igan(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_import_guard_covers_every_module_of_the_train_slice():
+    """The two guards above walk every source of the package; these are
+    the modules the train slice added."""
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"ops/spectral.py", "models/discriminator.py",
+            "losses/__init__.py", "losses/gan.py", "losses/damsm.py",
+            "losses/ntxent.py", "train/state.py", "train/train_gan.py",
+            "data/synthetic.py", "train_gan.py"} <= sources
 
 
 def test_importing_the_port_loads_no_jax_or_t2igan():
