@@ -14,22 +14,36 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    masked and unmasked, with ragged pixel counts, and prints the error
    beside its stated tolerance: the memory-read forward (K1), and the
    memory-read backward (K2) with its zero gradients at padding, its
-   run-to-run determinism and the ``MemoryRead`` autograd pairing;
+   run-to-run determinism and the ``MemoryRead`` autograd pairing; the
+   fused eval stage tail (K3) at the sampler's stage shapes and at its
+   edges (R = 1 and 3, 17x19, C = 16, batch 1, BN shifts +3 at the
+   border), and K3 on folded weights against the port's eval module chain;
 3. drives the sampler: ``t2igan_torch.generate.generate`` at the widths of
    ``t2igan_torch/configs/eval_clip_bird.yml`` (full ViT-B/32 text tower,
    weights from a seed) on caption requests at the YAML's batch of 10, and
    checks the images and that each sampler call launched K1 exactly twice;
    then holds the f32 sampler on the card to the same sampler on the CPU
    and prints the bf16-vs-f32 gap;
-4. drives the train path, this slice's main path: the ``train_gan``
-   trainer at the full width of ``configs/clip_bird_dmgan.yml`` takes 3
-   bf16 steps at the YAML's batch of 4; it checks finite losses, that G,
-   the discriminators, their spectral vectors and the EMA moved, the EMA
-   rule, and 4 K1 and 4 K2 launches per step; then holds one f32 step on
-   the card to the same step on the CPU at batch 2;
-5. times the sampler at batch 128 and the train step at batch 16 (the JAX
-   bench's shapes) in bf16, and each kernel beside its plain version, one
-   PyTorch library call and its bound, with CUDA events.
+3b. drives the same entry point with ``GAN.FUSED_TAIL: True`` (2 K1 and 2
+   K3 launches per sampler call), holds the f32 fused sampler to the
+   plain-tail sampler on the card and prints its bf16-vs-f32 gap;
+3c. drives gen+eval (sampler, [0, 1] rescale, bilinear 299, FID
+   Inception-v3 ``pool3``, random Inception weights from a seed) in both
+   tail settings: launch counts, f32 ``pool3`` on the card against the
+   CPU, and a finite Fréchet distance between two generated sets;
+4. drives the train path: the ``train_gan`` trainer at the full width of
+   ``configs/clip_bird_dmgan.yml`` (with ``GAN.FUSED_TAIL`` set, which
+   training ignores) takes 3 bf16 steps at the YAML's batch of 4; it
+   checks finite losses, that G, the discriminators, their spectral
+   vectors and the EMA moved, the EMA rule, and 4 K1, 4 K2 and 0 K3
+   launches per step; then holds one f32 step on the card to the same
+   step on the CPU at batch 2;
+5. times the sampler and gen+eval at batch 128 in both tail settings and
+   the train step at batch 16 (the JAX bench's shapes) in bf16, and each
+   kernel beside its plain version, its bound and one PyTorch library
+   call where one computes the same function (K3 has none; the port's
+   unfused eval module chain for the same tail is timed beside it), with
+   CUDA events.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the process
@@ -68,6 +82,21 @@ TRAIN_BATCH = 16
 STAGE_HW = ((64, 64), (128, 128))
 SLOTS, CHANNELS = 77, 64
 F32_UNIT = 2.0 ** -24  # unit roundoff of f32
+BF16_STEP = 2.0 ** -7  # one bf16 step, relative to the leading bit
+
+# K3 checks: (batch, (H, W), C, R, RGB head, want_h, BN shift added).  The
+# sampler's two stage shapes at batch 16 (64^2 with the feature output,
+# 128^2 with the RGB head only, and with both), then the edges.
+TAIL_CHANNELS = 2 * CHANNELS
+RESCHAIN_CASES = [(16, (64, 64), TAIL_CHANNELS, 2, False, True, 0.0),
+                  (16, (128, 128), TAIL_CHANNELS, 2, True, False, 0.0),
+                  (16, (128, 128), TAIL_CHANNELS, 2, True, True, 0.0),
+                  (2, (32, 32), TAIL_CHANNELS, 1, False, True, 0.0),
+                  (2, (32, 32), TAIL_CHANNELS, 3, True, True, 0.0),
+                  (2, (17, 19), TAIL_CHANNELS, 2, True, True, 0.0),
+                  (2, (16, 16), 16, 2, True, True, 0.0),
+                  (1, (64, 64), TAIL_CHANNELS, 2, False, True, 0.0),
+                  (2, (16, 16), TAIL_CHANNELS, 2, False, True, 3.0)]
 
 
 # (batch, HW, C, L) of the kernel checks: the paths' shapes at batch 16,
@@ -289,6 +318,143 @@ def check_memory_read_bwd(results):
     results["memory_read_bwd"]["max_abs_err"] = worst
 
 
+def reschain_inputs(b, hw, c, n_res, rgb, dtype, seed, shift=0.0):
+    """K3 arguments on the card: x [b, h, w, c] ~ N(0, 1), kernels HWIO of
+    unit gain (std 1/sqrt(fan in)) in ``dtype``, BN scales 1 + 0.1 N and
+    shifts 0.1 N (+ ``shift`` in the residual blocks) in f32."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * std
+
+    ws = (9 * c) ** -0.5
+    x = t(b, hw[0], hw[1], c).to(dtype)
+    rb = [(t(3, 3, c, 2 * c, std=ws).to(dtype), 1 + 0.1 * t(2 * c),
+           0.1 * t(2 * c) + shift, t(3, 3, c, c, std=ws).to(dtype),
+           1 + 0.1 * t(c), 0.1 * t(c) + shift) for _ in range(n_res)]
+    up = (t(3, 3, c, c, std=ws).to(dtype), 1 + 0.1 * t(c), 0.1 * t(c))
+    head = t(3, 3, c // 2, 3, std=(4.5 * c) ** -0.5).to(dtype) if rgb else None
+    return x, rb, up, head
+
+
+def tail_modules(c, n_res, rgb, dtype, seed):
+    """The port's eval module chain of a stage tail (ResBlocks, UpBlock,
+    the RGB head) with weights from a seed and random running statistics,
+    on the card in ``dtype``, and a function that runs it on NCHW maps."""
+    import torch
+
+    from t2igan_torch.models.generator import (BatchNorm, GetImageG,
+                                               ResBlock, UpBlock,
+                                               init_generator_)
+
+    mods = torch.nn.ModuleList([ResBlock(c) for _ in range(n_res)]
+                               + [UpBlock(c, c // 2)]
+                               + ([GetImageG(c // 2)] if rgb else []))
+    rng = torch.Generator().manual_seed(seed)
+    init_generator_(mods, rng)
+    with torch.no_grad():
+        for m in mods.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.1, generator=rng)
+                m.running_var.uniform_(0.5, 2.0, generator=rng)
+    mods = mods.to("cuda", dtype, memory_format=torch.channels_last).eval()
+
+    def chain(h):
+        for m in mods[:n_res + 1]:
+            h = m(h)
+        return mods[-1](h) if rgb else h
+
+    return mods, chain
+
+
+def _outputs(out):
+    return [o.float() for o in (out if isinstance(out, tuple) else (out,))]
+
+
+def check_reschain(results):
+    """Phase 2c: K3 against resblock_chain_up_plain on the card in f32
+    (TF32 off) and bf16, at the stage shapes and the edges; then K3 on
+    folded module weights against the eval module chain."""
+    import torch
+
+    from t2igan_torch.ops.kernels.reschain import (resblock_chain_up_fused,
+                                                   resblock_chain_up_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, hw, c, n_res, rgb, want_h, shift) in enumerate(
+                RESCHAIN_CASES):
+            x, rb, up, head = reschain_inputs(b, hw, c, n_res, rgb, dtype,
+                                              200 + i, shift)
+            out = _outputs(resblock_chain_up_fused(x, rb, *up, head, want_h))
+            ref = _outputs(resblock_chain_up_plain(x, rb, *up, head, want_h))
+            if dtype == torch.bfloat16:
+                # The same bf16 values through the plain version in f32:
+                # how far each bf16 version is from its exact result.
+                f32 = _outputs(resblock_chain_up_plain(
+                    x.float(), [[a.float() for a in p] for p in rb],
+                    *[a.float() for a in up],
+                    None if head is None else head.float(), want_h))
+            torch.cuda.synchronize()
+            line, ok = [], True
+            for name, o, r in zip(("up", "rgb") if want_h else ("rgb",),
+                                  out, ref):
+                err = (o - r).abs().max().item()
+                scale = r.abs().max().item()
+                ok &= bool(torch.isfinite(o).all())
+                if dtype == torch.float32:
+                    # Worst-case f32 rounding of a 9C-term sum, about five
+                    # convs deep, times the largest output.
+                    tol = 5 * 9 * c * F32_UNIT * scale + 1e-6
+                    ok &= err <= tol
+                    worst = max(worst, err)
+                    line.append(f"{name} {err:.3e}/{tol:.3e}")
+                else:
+                    # K3 rounds where the Pallas kernel does, the plain
+                    # version also rounds each conv output to bf16: K3
+                    # must be no farther from the f32 result than twice
+                    # the plain version's distance plus half a step.
+                    e = f32[len(line)]
+                    e_k = (o - e).abs().max().item()
+                    e_p = (r - e).abs().max().item()
+                    tol = 2 * e_p + BF16_STEP / 2 * scale
+                    ok &= e_k <= tol
+                    line.append(f"{name} vs f32 {e_k:.3e}/{tol:.3e} (plain "
+                                f"{e_p:.3e}), vs plain {err:.3e} = "
+                                f"{err / (BF16_STEP * scale):.2f} bf16 steps")
+            print(f"check reschain {str(dtype)[6:]} B={b} HW={hw[0]}x{hw[1]} "
+                  f"C={c} R={n_res} rgb={rgb} want_h={want_h} shift={shift}:"
+                  f" {'; '.join(line)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("reschain kernel disagrees with "
+                                     "resblock_chain_up_plain")
+    results["reschain"]["max_abs_err"] = worst
+
+    # Folded module weights through K3 against the eval module chain, f32,
+    # at the last stage's shape: one bound covers fold and kernel.
+    mods, chain = tail_modules(TAIL_CHANNELS, 2, True, torch.float32, 9)
+    x, _, _, _ = reschain_inputs(4, STAGE_HW[1], TAIL_CHANNELS, 2, False,
+                                 torch.float32, 9)
+    with torch.no_grad():
+        want = chain(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        got = resblock_chain_up_fused(
+            x, [m.fold() for m in mods[:2]], *mods[2].fold(),
+            rgb_kernel=mods[3].fold(), want_h=False)
+    err = (got - want).abs().max().item()
+    tol = 5 * 9 * TAIL_CHANNELS * F32_UNIT + 1e-6  # images in [-1, 1]
+    print(f"check reschain f32 on folded weights vs the eval module chain, "
+          f"B=4 HW={STAGE_HW[1][0]}x{STAGE_HW[1][1]} C={TAIL_CHANNELS} R=2 "
+          f"rgb: max_abs_err="
+          f"{err:.3e} tol={tol:.3e} {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("K3 on folded weights disagrees with the "
+                             "module chain")
+
+
 def drive_sampler():
     """Phase 3: the sampler at full width through the generate entry point."""
     import torch
@@ -362,17 +528,196 @@ def drive_sampler():
         raise AssertionError("f32 sampler on the card disagrees with the CPU")
 
 
-def drive_train_path(results):
-    """Phase 4a: 3 bf16 steps of the train_gan trainer at the full width
-    of clip_bird_dmgan.yml, the YAML's batch of 4."""
+def fused_cfg(fused: bool):
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import EVAL_CLIP_BIRD
+
+    return cfg_replace(cfg_from_dict(EVAL_CLIP_BIRD),
+                       GAN={"FUSED_TAIL": fused})
+
+
+def drive_fused_sampler(results):
+    """Phase 3b: the sampler with GAN.FUSED_TAIL through the generate
+    entry point, then the f32 fused sampler against the plain-tail one on
+    the card with the same weights."""
     import torch
 
-    from t2igan_torch.config import cfg_from_dict
+    from t2igan_torch.data.tokenizer import ClipTokenizer
+    from t2igan_torch.generate import build_models, generate
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.steps import make_sampler
+
+    cfg = fused_cfg(True)
+    batch = cfg.TRAIN.BATCH_SIZE
+    captions = [CAPTIONS[i % len(CAPTIONS)] for i in range(2 * batch)]
+    calls = -(-len(captions) // batch)
+    for name in list(LAUNCHES):
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    images = generate(cfg, captions, None, batch, torch.bfloat16, seed=0,
+                      device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    results["reschain"]["launches"] = counts.get("reschain", 0)
+    print(f"fused-tail sampler path: generate {len(captions)} captions, "
+          f"batch {batch}, bf16, GAN.FUSED_TAIL, {calls} sampler calls, "
+          f"{seconds:.2f} s with model set-up; launches {counts}")
+    if (counts.get("reschain") != 2 * calls
+            or counts.get("memory_read_fwd") != 2 * calls
+            or counts.get("memory_read_bwd", 0) != 0):
+        raise AssertionError(f"expected 2 reschain and 2 memory_read_fwd "
+                             f"launches per sampler call, got {counts} in "
+                             f"{calls} calls")
+    for fakes in images:
+        if [tuple(f.shape) for f in fakes] != [(batch, s, s, 3)
+                                               for s in (64, 128, 256)]:
+            raise AssertionError("fused sampler image shapes")
+        if not all(torch.isfinite(f).all() and f.abs().max() <= 1.0
+                   for f in fakes):
+            raise AssertionError("fused sampler images not finite in [-1, 1]")
+
+    tok = ClipTokenizer.load()(CAPTIONS[:2], max_length=cfg.TEXT.WORDS_NUM)
+    noise = torch.Generator().manual_seed(5)
+    z = torch.randn((2, cfg.GAN.Z_DIM), generator=noise)
+    eps = torch.randn((2, cfg.GAN.CONDITION_DIM), generator=noise)
+    runs = {}
+    for fused, dtype in ((False, torch.float32), (True, torch.float32),
+                         (True, torch.bfloat16)):
+        clip, gen = build_models(fused_cfg(fused), 0, torch.device("cuda"),
+                                 dtype)
+        sample = make_sampler(cfg, clip, gen)
+        runs[fused, dtype] = [f.float() for f in sample(
+            tok["input_ids"], tok["attention_mask"], z, eps)]
+        del clip, gen
+    # Bound 1e-3 on images in [-1, 1]: the sampler's card-vs-CPU bound;
+    # the two f32 tails differ in summation order and BN folding only.
+    bound = 1e-3
+    gap = max((a - b).abs().max().item() for a, b in
+              zip(runs[True, torch.float32], runs[False, torch.float32]))
+    bf16_gap = max((a - b).abs().max().item() for a, b in
+                   zip(runs[True, torch.bfloat16], runs[True, torch.float32]))
+    print(f"fused-tail sampler f32 vs plain-tail sampler f32 on the card, "
+          f"batch 2: max_abs_diff={gap:.3e} bound={bound:.0e} "
+          f"{'ok' if gap <= bound else 'FAIL'}")
+    print(f"fused-tail sampler bf16 vs f32 on the card, batch 2: "
+          f"max_abs_diff={bf16_gap:.3e}")
+    if not gap <= bound:
+        raise AssertionError("fused-tail sampler disagrees with the plain "
+                             "tail")
+
+
+def geneval_models(fused, device, dtype):
+    """CLIP, the generator (weights from seed 0) and the FID Inception-v3
+    (random weights from seed 7) on ``device`` in ``dtype``."""
+    import torch
+
+    from t2igan_torch.generate import build_models
+    from t2igan_torch.models.inception import InceptionV3, init_inception_
+
+    clip, gen = build_models(fused_cfg(fused), 0, torch.device(device), dtype)
+    inception = init_inception_(InceptionV3("fid"),
+                                torch.Generator().manual_seed(7))
+    inception = inception.to(device, dtype,
+                             memory_format=torch.channels_last).eval()
+    return clip, gen, inception
+
+
+def drive_geneval():
+    """Phase 3c: gen+eval in both tail settings: launch counts, f32 pool3
+    on the card vs the CPU at batch 4, and a finite Fréchet distance
+    between two generated sets."""
+    import torch
+
+    from t2igan_torch.data.tokenizer import ClipTokenizer
+    from t2igan_torch.evaluation.fid import (compute_statistics,
+                                             frechet_distance,
+                                             make_gen_activation_fn)
+    from t2igan_torch.ops.kernels import LAUNCHES
+
+    cfg = fused_cfg(False)
+    tok = ClipTokenizer.load()([CAPTIONS[i % len(CAPTIONS)]
+                                for i in range(4)],
+                               max_length=cfg.TEXT.WORDS_NUM)
+    noise = torch.Generator().manual_seed(6)
+    z = torch.randn((4, cfg.GAN.Z_DIM), generator=noise)
+    eps = torch.randn((4, cfg.GAN.CONDITION_DIM), generator=noise)
+    for fused in (False, True):
+        label = "fused tail" if fused else "plain tail"
+        feats, counts = {}, {}
+        for device in ("cuda", "cpu"):
+            run = make_gen_activation_fn(cfg, *geneval_models(
+                fused, device, torch.float32))
+            for name in list(LAUNCHES):
+                LAUNCHES[name] = 0
+            feats[device] = run(tok["input_ids"], tok["attention_mask"], z,
+                                eps).float().cpu()
+            counts[device] = {k: LAUNCHES[k]
+                              for k in ("memory_read_fwd", "reschain")}
+            del run
+        want = {"cuda": {"memory_read_fwd": 2, "reschain": 2 if fused else 0},
+                "cpu": {"memory_read_fwd": 0, "reschain": 0}}
+        if counts != want:
+            raise AssertionError(f"gen+eval f32 launches {counts}, expected "
+                                 f"{want}")
+        card, cpu = feats["cuda"], feats["cpu"]
+        # Bound: 1e-3 of pool3's largest magnitude, the sampler's image
+        # bound carried through a trunk that keeps its scale.
+        scale = cpu.abs().max().item()
+        gap = (card - cpu).abs().max().item()
+        ok = (tuple(card.shape) == (4, 2048) and bool(torch.isfinite(card)
+                                                      .all())
+              and gap <= 1e-3 * scale)
+        print(f"gen+eval {label}, f32 pool3 card vs CPU, batch 4: "
+              f"launches on the card {counts['cuda']}; "
+              f"max_abs_diff={gap:.3e} bound={1e-3 * scale:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("gen+eval pool3 on the card disagrees "
+                                 "with the CPU")
+
+        # The bf16 path, its launch counts, and FID between two sets.
+        run = make_gen_activation_fn(cfg, *geneval_models(
+            fused, "cuda", torch.bfloat16))
+        b = 16
+        tok16 = ClipTokenizer.load()([CAPTIONS[i % len(CAPTIONS)]
+                                      for i in range(b)],
+                                     max_length=cfg.TEXT.WORDS_NUM)
+        ids, mask = tok16["input_ids"], tok16["attention_mask"]
+        sets = []
+        for seed in (1, 2):
+            g = torch.Generator().manual_seed(seed)
+            batches = [(ids, mask, torch.randn((b, cfg.GAN.Z_DIM), generator=g),
+                        torch.randn((b, cfg.GAN.CONDITION_DIM), generator=g))
+                       for _ in range(4)]
+            for name in list(LAUNCHES):
+                LAUNCHES[name] = 0
+            sets.append(compute_statistics(lambda a: run(*a), batches))
+            counts = dict(LAUNCHES)
+        want = {"memory_read_fwd": 8, "reschain": 8 if fused else 0}
+        fid = frechet_distance(*sets[0], *sets[1])
+        ok = (all(counts.get(k, 0) == v for k, v in want.items())
+              and math.isfinite(fid))
+        print(f"gen+eval {label}, bf16, 2 sets of 4 batches of {b}: "
+              f"launches per set {counts} (want {want}); FID between the "
+              f"sets {fid:.6e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("gen+eval launch counts or FID wrong")
+
+
+def drive_train_path(results):
+    """Phase 4a: 3 bf16 steps of the train_gan trainer at the full width
+    of clip_bird_dmgan.yml, the YAML's batch of 4, with GAN.FUSED_TAIL set:
+    the fused tail is eval only, so no step may launch K3."""
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
     from t2igan_torch.configs import CLIP_BIRD_DMGAN
     from t2igan_torch.ops.kernels import LAUNCHES
     from t2igan_torch.train.train_gan import CondGanTrainer
 
-    cfg = cfg_from_dict(CLIP_BIRD_DMGAN)
+    cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
+                      GAN={"FUSED_TAIL": True})
     t0 = time.perf_counter()
     trainer = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0)
     setup = time.perf_counter() - t0
@@ -404,15 +749,16 @@ def drive_train_path(results):
     seconds = time.perf_counter() - t0
     for name in ("memory_read_fwd", "memory_read_bwd"):
         results[name]["launches"] = LAUNCHES[name]
-    print(f"train path: train_gan, clip_bird_dmgan.yml full width, batch "
+    print(f"train path: train_gan, clip_bird_dmgan.yml full width with "
+          f"GAN.FUSED_TAIL, batch "
           f"{cfg.TRAIN.BATCH_SIZE}, bf16, 3 steps in {seconds:.2f} s "
           f"(set-up {setup:.2f} s); launches {dict(LAUNCHES)}, per step "
           f"{per_step}; last metrics "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
     if any(c.get("memory_read_fwd") != 4 or c.get("memory_read_bwd") != 4
-           for c in per_step):
-        raise AssertionError("expected 4 memory_read_fwd and 4 "
-                             "memory_read_bwd launches per train step")
+           or c.get("reschain", 0) != 0 for c in per_step):
+        raise AssertionError("expected 4 memory_read_fwd, 4 memory_read_bwd "
+                             "and 0 reschain launches per train step")
     after = {k: t.detach() for k, t in snap().items()}
     moved = {k: (after[k] - first[k]).abs().max().item() for k in first}
     print("train path: max change over 3 steps "
@@ -621,31 +967,103 @@ def time_memory_read_bwd(card, results, step_ms):
           f"({share:.1%}), timed apart")
 
 
-def time_sampler(card):
-    """Phase 5a: sampler ms/batch at batch 128 in bf16, the JAX bench's
-    gen shape and inputs (ids all <eos>, full mask)."""
+def bench_inputs(cfg, b, eos_token_id):
+    """The JAX bench's gen inputs at batch ``b``: ids all <eos>, full mask,
+    z and eps from seed 3."""
     import torch
 
-    from t2igan_torch.config import cfg_from_dict
-    from t2igan_torch.configs import EVAL_CLIP_BIRD
-    from t2igan_torch.generate import build_models
-    from t2igan_torch.train.steps import make_sampler
-
-    cfg = cfg_from_dict(EVAL_CLIP_BIRD)
-    clip, gen = build_models(cfg, 0, torch.device("cuda"), torch.bfloat16)
-    sample = make_sampler(cfg, clip, gen)
-    b, w = TIMED_BATCH, cfg.TEXT.WORDS_NUM
-    ids = torch.full((b, w), clip.cfg.eos_token_id, dtype=torch.int32,
-                     device="cuda")
+    w = cfg.TEXT.WORDS_NUM
+    ids = torch.full((b, w), eos_token_id, dtype=torch.int32, device="cuda")
     mask = torch.ones((b, w), dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(3)
     z = torch.randn((b, cfg.GAN.Z_DIM), generator=g, device="cuda")
     eps = torch.randn((b, cfg.GAN.CONDITION_DIM), generator=g, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: sample(ids, mask, z, eps), iters=10)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[{card}] sampler bf16 batch {b}: {ms:.3f} ms/batch, "
-          f"{b * 1000.0 / ms:.1f} images/s, peak memory {peak:.2f} GiB")
+    return ids, mask, z, eps
+
+
+def time_sampler(card):
+    """Phase 5a: the sampler, then gen+eval, at batch 128 in bf16, the JAX
+    bench's gen shape and inputs, with the plain and the fused tail."""
+    import torch
+
+    from t2igan_torch.evaluation.fid import make_gen_activation_fn
+    from t2igan_torch.train.steps import make_sampler
+
+    b = TIMED_BATCH
+    for fused in (False, True):
+        cfg = fused_cfg(fused)
+        clip, gen, inception = geneval_models(fused, "cuda", torch.bfloat16)
+        args = bench_inputs(cfg, b, clip.cfg.eos_token_id)
+        label = "fused tail" if fused else "plain tail"
+        for name, fn in (("sampler", make_sampler(cfg, clip, gen)),
+                         ("gen+eval", make_gen_activation_fn(
+                             cfg, clip, gen, inception))):
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: fn(*args), iters=10)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"[{card}] {name} {label} bf16 batch {b}: {ms:.3f} "
+                  f"ms/batch, {b * 1000.0 / ms:.1f} images/s, peak memory "
+                  f"{peak:.2f} GiB")
+        del clip, gen, inception
+
+
+def time_reschain(card, results):
+    """Phase 5e: K3 at each stage shape of the timed sampler (batch 128,
+    bf16) against resblock_chain_up_plain and, for context, the port's
+    eval module chain for the same tail, beside its bound."""
+    import torch
+
+    from t2igan_torch.ops.kernels.reschain import (resblock_chain_up_fused,
+                                                   resblock_chain_up_plain)
+
+    b, c, n_res = TIMED_BATCH, TAIL_CHANNELS, 2
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    chain_total = 0.0
+    for hw, rgb in ((STAGE_HW[0], False), (STAGE_HW[1], True)):
+        mods, chain = tail_modules(c, n_res, rgb, torch.bfloat16, 11)
+        x, _, _, _ = reschain_inputs(b, hw, c, n_res, False, torch.bfloat16,
+                                     11)
+        rb = [m.fold() for m in mods[:n_res]]
+        up = mods[n_res].fold()
+        head = mods[-1].fold() if rgb else None
+        x_nchw = x.permute(0, 3, 1, 2)
+        n = hw[0] * hw[1]
+        flops = 2 * b * n * (n_res * 9 * (2 * c * c + c * c) + 16 * c * c)
+        nbytes = 2 * (b * n * c + n_res * 9 * 3 * c * c + 9 * c * c) \
+            + 4 * (n_res * 6 * c + 2 * c)
+        if rgb:
+            flops += 2 * b * 4 * n * 9 * (c // 2) * 3
+            nbytes += 2 * (9 * (c // 2) * 3 + b * 4 * n * 3)
+        else:
+            nbytes += 2 * b * 4 * n * (c // 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
+        bound = max(t_bytes, t_ops)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: resblock_chain_up_fused(
+                x, rb, *up, head, not rgb), iters=10)
+            plain = cuda_ms(lambda: resblock_chain_up_plain(
+                x, rb, *up, head, not rgb), iters=5)
+            mod_ms = cuda_ms(lambda: chain(x_nchw), iters=10)
+        print(f"[{card}] reschain bf16 B={b} HW={hw[0]}x{hw[1]} C={c} "
+              f"R={n_res} {'RGB head only' if rgb else 'features'}: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, eval module chain "
+              f"{mod_ms:.4f} ms, bound {bound:.4f} ms (bytes "
+              f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
+              f"{flops / 1e12:.3f} TFLOP -> {t_ops:.4f} ms), "
+              f"{bound / ms:.1%} of bound, {flops / ms / 1e9:.1f} TFLOP/s")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+            totals[key] += val
+        chain_total += mod_ms
+        results["reschain"]["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+        del mods, chain, x, x_nchw
+    results["reschain"].update(totals)
+    # No single PyTorch call computes the fused tail.
+    results["reschain"]["library_ms"] = None
+    print(f"[{card}] reschain, both stages: kernel {totals['ms']:.3f} ms, "
+          f"plain {totals['plain_ms']:.3f} ms, eval module chain "
+          f"{chain_total:.3f} ms, bound {totals['bound_ms']:.3f} ms")
 
 
 def time_memory_read(card, results):
@@ -727,16 +1145,24 @@ def main() -> int:
         "memory_read_bwd": {
             "name": "memory_read_bwd", "route": "cuda",
             "source": "t2igan_torch/csrc/memory_read_bwd.cu",
-            "replaces": "t2igan/ops/pallas/memory_read.py:122"}}
+            "replaces": "t2igan/ops/pallas/memory_read.py:122"},
+        "reschain": {
+            "name": "reschain", "route": "cuda",
+            "source": "t2igan_torch/csrc/reschain.cu",
+            "replaces": "t2igan/ops/pallas/reschain.py:176"}}
     check_memory_read(results)
     check_memory_read_bwd(results)
+    check_reschain(results)
     drive_sampler()
+    drive_fused_sampler(results)
+    drive_geneval()
     drive_train_path(results)
     check_train_step_card_vs_cpu()
     time_sampler(card)
     step_ms = time_train_step(card)
     time_memory_read(card, results)
     time_memory_read_bwd(card, results, step_ms)
+    time_reschain(card, results)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

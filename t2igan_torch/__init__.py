@@ -10,11 +10,15 @@ and nothing of ``t2igan`` or JAX.  Its paths so far:
 * the adversarial train step (:func:`t2igan_torch.train.steps.make_gan_step`):
   the generator in train mode, three spectral-norm discriminators, the GAN,
   DAMSM and NT-Xent losses through the frozen CLIP towers, Adam and the
-  G EMA.
+  G EMA;
+* gen+eval (:func:`t2igan_torch.evaluation.fid.make_gen_activation_fn`):
+  the sampler's images through the FID Inception-v3 to ``pool3``.
 
 The memory read of each refinement stage is a pair of hand-written CUDA
 kernels, forward (``csrc/memory_read.cu``) and backward
-(``csrc/memory_read_bwd.cu``), built with ``nvcc`` at first use.
+(``csrc/memory_read_bwd.cu``); under ``GAN.FUSED_TAIL`` each stage's eval
+tail is a third (``csrc/reschain.cu``).  All are built with ``nvcc`` at
+first use.
 
 Entry points: ``python -m t2igan_torch.generate --cfg CFG --captions FILE``
 and ``python -m t2igan_torch.train_gan --cfg CFG --steps N``.

@@ -11,8 +11,9 @@ What the port does with the TPU-only generator switches:
   output-equivalent rewrites of the same upsample + conv3x3 (+ BN, GLU, RGB
   head) for XLA; every value computes the same function, so the port
   accepts them and runs the plain form.
-* ``GAN.FUSED_TAIL`` selects a Pallas kernel the port has not ported yet:
-  :func:`t2igan_torch.models.factory.build_generator` raises on it.
+* ``GAN.FUSED_TAIL`` selects the fused eval stage tail, a Pallas kernel
+  in the JAX package and the hand-written CUDA kernel K3
+  (``csrc/reschain.cu``) in the port.
 * The ``T2IGAN_*`` environment overrides of the JAX package do not exist
   here: the config alone decides.
 """
@@ -89,7 +90,7 @@ class GanConfig:
     # for all three.
     UPBLOCK: str = "dilated"
     # The fused eval stage tail (a Pallas kernel in the JAX package, K3 in
-    # PERF.md).  Not ported yet: build_generator raises when it is set.
+    # PERF.md, csrc/reschain.cu in the port); eval mode only.
     FUSED_TAIL: bool = False
     # Phase-space form of the final eval tail in the JAX package; the same
     # function as the plain tail, which is what the port runs.

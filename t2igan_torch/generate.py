@@ -9,8 +9,9 @@ captions (one per line) are tokenized, ``z`` and the conditioning noise are
 drawn from a seeded ``torch.Generator``, the sampler runs, and each
 caption's 64, 128 and 256 px images are written as ``<i>_g<k>.png``.
 Weights are random, made from ``--seed`` (checkpoints are a later slice).
-The default device is ``cuda``; without a card this raises rather than
-falling back to the CPU.
+A config with ``GAN: {FUSED_TAIL: True}`` runs each stage's eval tail
+through the fused tail kernel (K3).  The default device is ``cuda``;
+without a card this raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations

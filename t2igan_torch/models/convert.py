@@ -1,6 +1,6 @@
 """Weight bridge: the JAX package's variables -> the port's modules.
 
-Both loaders take the JAX variable trees as nested dicts of numpy arrays,
+The loaders take the JAX variable trees as nested dicts of numpy arrays,
 as ``jax.tree.map(np.asarray, variables)`` gives them, and fill the port's
 modules in place:
 
@@ -12,7 +12,10 @@ modules in place:
   weight/bias/running_mean/running_var;
 * spectral-norm conv kernels like conv kernels, and the ``spectral``
   collection's ``u``/``v`` -> the ``SNConv`` buffers (``v`` keeps the JAX
-  (kh, kw, in) order).
+  (kh, kw, in) order);
+* Inception's fused 1x1 convs (``fused1x1``: one conv and BN over the
+  concatenated output channels of a block's same-input 1x1 branches) ->
+  the per-branch ``BasicConv2d`` modules, split along the output channels.
 
 A missing or mis-shaped variable raises, and so does a variable that no
 module took (beyond the vision side for :func:`load_jax_clip_text`): that
@@ -34,6 +37,7 @@ from torch import nn
 from t2igan_torch.models.clip import (ClipWithRegionHead, EncoderLayer,
                                       TextTower, VisionTower)
 from t2igan_torch.models.discriminator import DGetLogits, DNetWithHeads
+from t2igan_torch.models.inception import BasicConv2d, InceptionV3
 from t2igan_torch.models.generator import (BatchNorm, CANet, GetImageG, GNet,
                                            InitStageG, NextStageG, ResBlock,
                                            UpBlock)
@@ -287,5 +291,69 @@ def load_jax_discriminator(module: DNetWithHeads,
     _d_head(ld, module.cond_head, ("cond_head",))
     if module.uncond_head is not None:
         _d_head(ld, module.uncond_head, ("uncond_head",))
+    ld.check_all_used()
+    return module
+
+
+# The same-input 1x1 branches that each JAX Inception block runs as one
+# ``fused1x1`` conv, in the order of its output channels.
+_FUSED_1X1 = {
+    **{m: ("branch1x1", "branch5x5_1", "branch3x3dbl_1")
+       for m in ("Mixed_5b", "Mixed_5c", "Mixed_5d")},
+    **{m: ("branch1x1", "branch7x7_1", "branch7x7dbl_1")
+       for m in ("Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e")},
+    "Mixed_7a": ("branch3x3_1", "branch7x7x3_1"),
+    **{m: ("branch1x1", "branch3x3_1", "branch3x3dbl_1")
+       for m in ("Mixed_7b", "Mixed_7c")},
+}
+
+
+def _basic_conv(ld: _Loader, m: BasicConv2d, path: Path,
+                channels: slice = slice(None)) -> None:
+    """conv and BN of one ``BasicConv2d`` from ``path`` (flax's plain
+    ``nn.BatchNorm`` named ``bn``), taking the output ``channels`` of a
+    fused conv."""
+    p, s = ("params",) + path, ("batch_stats",) + path
+    kernel = ld.get(p + ("conv", "kernel"))[..., channels]
+    ld.copy(m.conv.weight, kernel.transpose(3, 2, 0, 1), p + ("conv", "kernel"))
+    for dst, src in ((m.bn.weight, p + ("bn", "scale")),
+                     (m.bn.bias, p + ("bn", "bias")),
+                     (m.bn.running_mean, s + ("bn", "mean")),
+                     (m.bn.running_var, s + ("bn", "var"))):
+        ld.copy(dst, ld.get(src)[channels], src)
+
+
+@torch.no_grad()
+def load_jax_inception(module: InceptionV3,
+                       variables: Mapping[str, Any]) -> InceptionV3:
+    """Fill ``module`` from the variables ``{"params": ..., "batch_stats":
+    ...}`` of the JAX ``InceptionV3`` of the same variant; each
+    ``fused1x1`` is split into its branches in ``_FUSED_1X1`` order and
+    widths, and every entry must be taken."""
+    ld = _Loader(variables)
+    for name, child in module.named_children():
+        if isinstance(child, BasicConv2d):
+            _basic_conv(ld, child, (name,))
+        elif isinstance(child, nn.Linear):
+            ld.dense(child, ("params", name))
+        else:
+            fused = _FUSED_1X1.get(name, ())
+            start = 0
+            for branch in fused:
+                m = getattr(child, branch)
+                width = m.conv.out_channels
+                _basic_conv(ld, m, (name, "fused1x1"),
+                            slice(start, start + width))
+                start += width
+            if fused:
+                total = ld.get(("params", name, "fused1x1", "conv",
+                                "kernel")).shape[-1]
+                if total != start:
+                    raise ValueError(f"JAX variable {name}/fused1x1 has "
+                                     f"{total} output channels, the port's "
+                                     f"branches {fused} take {start}")
+            for branch, m in child.named_children():
+                if branch not in fused:
+                    _basic_conv(ld, m, (name, branch))
     ld.check_all_used()
     return module

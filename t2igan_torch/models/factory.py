@@ -15,14 +15,9 @@ def build_generator(cfg: Config) -> GNet:
     """The generator the config names, in eval mode, f32 on the CPU (move
     it with ``.to(device, dtype)``).
 
-    Raises ``NotImplementedError`` for what the port does not have yet:
-    ``GAN.FUSED_TAIL`` (the fused stage-tail kernel, ROADMAP.md Queue 2 K3)
-    and ``GAN.B_DCGAN`` (``GDCGan``, ROADMAP.md Queue 1)."""
-    if cfg.GAN.FUSED_TAIL:
-        raise NotImplementedError(
-            "GAN.FUSED_TAIL selects the fused eval stage tail, a TPU kernel "
-            "the port has not ported yet (ROADMAP.md, Queue 2, K3); set "
-            "GAN.FUSED_TAIL: False")
+    ``GAN.FUSED_TAIL`` runs each eval-mode stage tail through the fused
+    tail kernel (K3).  Raises ``NotImplementedError`` on ``GAN.B_DCGAN``
+    (``GDCGan``, which the port does not have yet, ROADMAP.md Queue 1)."""
     if cfg.GAN.B_DCGAN:
         raise NotImplementedError(
             "GAN.B_DCGAN selects GDCGan, which the port has not ported yet "
@@ -30,7 +25,8 @@ def build_generator(cfg: Config) -> GNet:
     return GNet(gf_dim=cfg.GAN.GF_DIM, nef=cfg.TEXT.EMBEDDING_DIM,
                 condition_dim=cfg.GAN.CONDITION_DIM, z_dim=cfg.GAN.Z_DIM,
                 branch_num=cfg.TREE.BRANCH_NUM, num_residual=cfg.GAN.R_NUM,
-                upblock=cfg.GAN.UPBLOCK).eval()
+                upblock=cfg.GAN.UPBLOCK,
+                fused_tail=cfg.GAN.FUSED_TAIL).eval()
 
 
 def build_discriminators(cfg: Config) -> List[DNetWithHeads]:

@@ -17,6 +17,12 @@ The JAX package's ``GAN.UPBLOCK`` variants, ``GAN.PHASED_TAIL`` and
 ``GAN.PHASED_TAIL_TRAIN`` are output-equivalent rewrites of one function
 for XLA; the port computes that function in its plain form, nearest-2x
 upsample then conv3x3 (then BN, GLU, RGB conv, tanh), for every setting.
+
+``GAN.FUSED_TAIL`` (``fused_tail=True``) sends each refinement stage's
+eval-mode tail (ResBlocks, UpBlock and, at the last stage, the RGB head)
+through :func:`t2igan_torch.ops.kernels.reschain.resblock_chain_up_fused`
+on weights folded by the modules' ``fold()``, as the JAX package does;
+training keeps the module chain.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from torch import nn
 
 from t2igan_torch.ops.attention import memory_read
 from t2igan_torch.ops.image import upsample_nearest_2x
+from t2igan_torch.ops.kernels.reschain import resblock_chain_up_fused
 
 UPBLOCK_VARIANTS = ("dilated", "naive", "subpixel")
 
@@ -41,6 +48,12 @@ def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+
+
+def hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """A conv's weight [Cout, Cin, kh, kw] as the JAX kernel layout
+    [kh, kw, Cin, Cout] (a view)."""
+    return conv.weight.permute(2, 3, 1, 0)
 
 
 class BatchNorm(nn.Module):
@@ -81,6 +94,14 @@ class BatchNorm(nn.Module):
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
+    def fold(self):
+        """Eval mode as an f32 per-channel affine ``(scale, shift)``:
+        ``scale = weight * rsqrt(running_var + eps)``, ``shift = bias -
+        running_mean * scale``."""
+        scale = self.weight.float() * torch.rsqrt(self.running_var.float()
+                                                  + self.eps)
+        return scale, self.bias.float() - self.running_mean.float() * scale
+
 
 class UpBlock(nn.Module):
     """Nearest-2x upsample, conv3x3 -> 2F, BN, GLU -> F channels."""
@@ -97,6 +118,10 @@ class UpBlock(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return glu(self.bn(self.conv(upsample_nearest_2x(x)), train))
 
+    def fold(self):
+        """(kernel HWIO, scale, shift) of the eval-mode block."""
+        return (hwio(self.conv), *self.bn.fold())
+
 
 class ResBlock(nn.Module):
     """conv3x3 -> 2F, BN, GLU, conv3x3 -> F, BN, plus the input."""
@@ -111,6 +136,12 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = glu(self.bn1(self.conv1(x), train))
         return x + self.bn2(self.conv2(h), train)
+
+    def fold(self):
+        """(k1, scale1, shift1, k2, scale2, shift2) of the eval-mode block,
+        kernels HWIO: one ``rb_params`` entry of the fused tail."""
+        return (hwio(self.conv1), *self.bn1.fold(), hwio(self.conv2),
+                *self.bn2.fold())
 
 
 class CANet(nn.Module):
@@ -156,11 +187,13 @@ class NextStageG(nn.Module):
     """Dynamic-memory refinement stage: memory write, memory read, response
     gate, ``num_residual`` ResBlocks and a 2x UpBlock.  Sub-module names
     follow the JAX module (``A``, ``B``, ``M_w``, ``M_r``, ``key``,
-    ``value``, ``response_gate``)."""
+    ``value``, ``response_gate``).  With ``fused_tail`` the eval-mode
+    tail runs as the fused tail kernel."""
 
     def __init__(self, ngf: int, nef: int, num_residual: int = 2,
-                 upblock: str = "dilated"):
+                 upblock: str = "dilated", fused_tail: bool = False):
         super().__init__()
+        self.fused_tail = fused_tail
         self.A = nn.Linear(nef, 1, bias=False)
         self.B = nn.Linear(ngf, 1, bias=False)
         self.M_w = nn.Linear(nef, 2 * ngf)
@@ -174,10 +207,14 @@ class NextStageG(nn.Module):
 
     def forward(self, h_code: torch.Tensor, word_embs: torch.Tensor,
                 pad_mask: Optional[torch.Tensor], return_attn: bool = True,
-                train: bool = False):
+                train: bool = False,
+                rgb_kernel: Optional[torch.Tensor] = None):
         """h_code [B, ngf, H, W]; word_embs [B, L, nef]; pad_mask [B, L]
         bool, True at padding.  Returns (h [B, ngf, 2H, 2W], attn
-        [B, H, W, L] or None)."""
+        [B, H, W, L] or None).  With ``rgb_kernel`` (the last stage's
+        head, HWIO; fused eval tail only) the first output is the RGB
+        image [B, 3, 2H, 2W] in [-1, 1] instead, and the 2x feature map is
+        never returned."""
         h_code = h_code.contiguous(memory_format=torch.channels_last)
         # Memory writing: a per-word gate between word and image features.
         # The pooled state passes no gradient, as in the JAX package.
@@ -197,9 +234,24 @@ class NextStageG(nn.Module):
             torch.cat([h_code, mem_out], dim=1)))
         h_new = h_code * (1.0 - gate_r) + gate_r * mem_out
         h_new = torch.cat([h_new, h_new], dim=1)
+        if self.fused_tail and not train:
+            return self._fused_tail(h_new, rgb_kernel), attn
+        if rgb_kernel is not None:
+            raise ValueError("rgb_kernel is taken by the fused eval tail only")
         for block in self.residual:
             h_new = block(h_new, train)
         return self.upsample(h_new, train), attn
+
+    def _fused_tail(self, h_new: torch.Tensor,
+                    rgb_kernel: Optional[torch.Tensor]) -> torch.Tensor:
+        """ResBlocks, UpBlock (and the RGB head) in one fused-tail call on
+        the NHWC view of the channels-last map; the result comes back as
+        an NCHW view."""
+        out = resblock_chain_up_fused(
+            h_new.permute(0, 2, 3, 1), [b.fold() for b in self.residual],
+            *self.upsample.fold(), rgb_kernel=rgb_kernel,
+            want_h=rgb_kernel is None)
+        return out.permute(0, 3, 1, 2)
 
 
 class GetImageG(nn.Module):
@@ -212,6 +264,10 @@ class GetImageG(nn.Module):
     def forward(self, h_code: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.conv(h_code))
 
+    def fold(self) -> torch.Tensor:
+        """The head's kernel HWIO [3, 3, ngf, 3], for the fused tail."""
+        return hwio(self.conv)
+
 
 class GNet(nn.Module):
     """Cascaded generator.
@@ -219,19 +275,21 @@ class GNet(nn.Module):
     ``gf_dim`` = GAN.GF_DIM, ``nef`` = TEXT.EMBEDDING_DIM, ``condition_dim``
     = GAN.CONDITION_DIM, ``z_dim`` = GAN.Z_DIM, ``branch_num`` =
     TREE.BRANCH_NUM, ``num_residual`` = GAN.R_NUM, ``upblock`` =
-    GAN.UPBLOCK.
+    GAN.UPBLOCK, ``fused_tail`` = GAN.FUSED_TAIL (eval only: each stage
+    tail, and the last stage's RGB head, through the fused tail kernel).
     """
 
     def __init__(self, gf_dim: int = 64, nef: int = 512,
                  condition_dim: int = 512, z_dim: int = 100,
                  branch_num: int = 3, num_residual: int = 2,
-                 upblock: str = "dilated"):
+                 upblock: str = "dilated", fused_tail: bool = False):
         super().__init__()
+        self.fused_tail = fused_tail
         self.ca_net = CANet(nef, condition_dim)
         self.init_stage = InitStageG(gf_dim * 16, condition_dim + z_dim,
                                      upblock)
         self.next_stages = nn.ModuleList(
-            NextStageG(gf_dim, nef, num_residual, upblock)
+            NextStageG(gf_dim, nef, num_residual, upblock, fused_tail)
             for _ in range(branch_num - 1))
         self.image_heads = nn.ModuleList(GetImageG(gf_dim)
                                          for _ in range(branch_num))
@@ -251,9 +309,19 @@ class GNet(nn.Module):
         words = word_embs.to(dtype)
         fake_imgs = [self.image_heads[0](h_code)]
         att_maps = []
-        for stage, head in zip(self.next_stages, self.image_heads[1:]):
-            h_code, attn = stage(h_code, words, pad_mask, return_attn, train)
-            fake_imgs.append(head(h_code))
+        last = len(self.next_stages) - 1
+        for i, (stage, head) in enumerate(zip(self.next_stages,
+                                              self.image_heads[1:])):
+            if i == last and self.fused_tail and not train:
+                # The head folds into the last fused tail: its 2x feature
+                # map's only consumer is this head.
+                img, attn = stage(h_code, words, pad_mask, return_attn,
+                                  train, rgb_kernel=head.fold())
+                fake_imgs.append(img)
+            else:
+                h_code, attn = stage(h_code, words, pad_mask, return_attn,
+                                     train)
+                fake_imgs.append(head(h_code))
             if attn is not None:
                 att_maps.append(attn)
         return ([img.permute(0, 2, 3, 1) for img in fake_imgs], att_maps,

@@ -1,11 +1,16 @@
 """Where a step's time goes on the card, by kernel family.
 
-    python -m t2igan_torch.profile_step [--path sampler|train] [--batch N] \
-        [--dtype bf16|f32] [--iters 3] [--trace PATH]
+    python -m t2igan_torch.profile_step [--path sampler|geneval|train] \
+        [--fused-tail] [--batch N] [--dtype bf16|f32] [--iters 3] \
+        [--trace PATH]
 
 ``--path sampler`` (default batch 128) runs the sampler at the widths of
 ``configs/eval_clip_bird.yml`` on the JAX bench's gen inputs (ids all
-<eos>, full mask); ``--path train`` (default batch 16) runs the
+<eos>, full mask); ``--path geneval`` (default batch 128) runs the same
+sampler into the FID Inception-v3 (``pool3``), the JAX bench's
+``--mode geneval``; ``--fused-tail`` sets ``GAN.FUSED_TAIL`` for either,
+so each stage tail runs the fused tail kernel (K3); ``--path train``
+(default batch 16) runs the
 adversarial step at the widths of ``configs/clip_bird_dmgan.yml`` on the
 JAX bench's train fixtures (lr 2e-5).  Weights come from a seed.  After a
 warm-up it records ``--iters`` calls under ``torch.profiler``, reads the
@@ -28,7 +33,9 @@ import torch
 from t2igan_torch.config import cfg_from_dict, cfg_replace
 from t2igan_torch.configs import CLIP_BIRD_DMGAN, EVAL_CLIP_BIRD
 from t2igan_torch.data.synthetic import bench_train_batches
+from t2igan_torch.evaluation.fid import make_gen_activation_fn
 from t2igan_torch.generate import DTYPES, build_models
+from t2igan_torch.models.inception import InceptionV3, init_inception_
 from t2igan_torch.train.steps import make_sampler
 from t2igan_torch.train.train_gan import CondGanTrainer
 
@@ -36,6 +43,7 @@ from t2igan_torch.train.train_gan import CondGanTrainer
 FAMILIES = (
     ("memory_read_fwd (K1)", ("memory_read_fwd",)),
     ("memory_read_bwd (K2)", ("memory_read_bwd",)),
+    ("reschain (K3)", ("reschain",)),
     ("nearest upsample", ("upsample",)),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
@@ -57,10 +65,21 @@ def family(name: str) -> str:
     return "other"
 
 
-def sampler_call(batch: int, dtype: torch.dtype):
-    cfg = cfg_from_dict(EVAL_CLIP_BIRD)
+def sampler_call(batch: int, dtype: torch.dtype, fused_tail: bool = False,
+                 geneval: bool = False):
+    """The sampler (or, with ``geneval``, the sampler into Inception
+    pool3) on the JAX bench's gen inputs, weights from seeds."""
+    cfg = cfg_replace(cfg_from_dict(EVAL_CLIP_BIRD),
+                      GAN={"FUSED_TAIL": fused_tail})
     clip, gen = build_models(cfg, 0, torch.device("cuda"), dtype)
-    sample = make_sampler(cfg, clip, gen)
+    if geneval:
+        inception = init_inception_(InceptionV3("fid"),
+                                    torch.Generator().manual_seed(7))
+        inception = inception.to("cuda", dtype,
+                                 memory_format=torch.channels_last).eval()
+        sample = make_gen_activation_fn(cfg, clip, gen, inception)
+    else:
+        sample = make_sampler(cfg, clip, gen)
     w = cfg.TEXT.WORDS_NUM
     ids = torch.full((batch, w), clip.cfg.eos_token_id, dtype=torch.int32,
                      device="cuda")
@@ -90,9 +109,12 @@ def train_call(batch: int, dtype: torch.dtype):
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--path", choices=["sampler", "train"], default="sampler")
+    p.add_argument("--path", choices=["sampler", "geneval", "train"],
+                   default="sampler")
+    p.add_argument("--fused-tail", action="store_true",
+                   help="GAN.FUSED_TAIL for the sampler and geneval paths")
     p.add_argument("--batch", type=int, default=None,
-                   help="default 128 (sampler) or 16 (train)")
+                   help="default 128 (sampler, geneval) or 16 (train)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--trace", default="", help="keep the Chrome trace here")
@@ -102,9 +124,15 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    b = args.batch or (128 if args.path == "sampler" else 16)
-    make = sampler_call if args.path == "sampler" else train_call
-    call = make(b, DTYPES[args.dtype])
+    if args.fused_tail and args.path == "train":
+        raise SystemExit("--fused-tail is eval only: the train step runs "
+                         "the module chain")
+    b = args.batch or (16 if args.path == "train" else 128)
+    if args.path == "train":
+        call = train_call(b, DTYPES[args.dtype])
+    else:
+        call = sampler_call(b, DTYPES[args.dtype], args.fused_tail,
+                            geneval=args.path == "geneval")
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -135,7 +163,8 @@ def main() -> None:
         by_family[family(e["name"])] += e["dur"] / 1e3 / args.iters
         by_name[e["name"]] += e["dur"] / 1e3 / args.iters
         launches[e["name"]] += 1
-    print(f"[{card}] {args.path} {args.dtype} batch {b}: device busy "
+    tail = " fused tail" if args.fused_tail else ""
+    print(f"[{card}] {args.path}{tail} {args.dtype} batch {b}: device busy "
           f"{busy:.3f} ms/call, window {window:.3f} ms/call, idle share "
           f"{1 - busy / window:.1%}, {len(kernels) // args.iters} kernels/call")
     for fam, ms in by_family.most_common():

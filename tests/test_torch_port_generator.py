@@ -217,10 +217,19 @@ def test_bridge_rejects_misshaped_kernel():
         load_jax_generator(tgen.GNet(**SMALL), v)
 
 
-def test_fused_tail_raises():
-    cfg = cfg_replace(Config(), GAN={"FUSED_TAIL": True})
-    with pytest.raises(NotImplementedError, match="K3"):
-        build_generator(cfg)
+def test_fused_tail_builds_a_fused_generator():
+    """GAN.FUSED_TAIL gives a generator whose refinement stages take the
+    fused eval tail (tests/test_torch_port_reschain.py checks its
+    outputs); the parameter layout is the plain one."""
+    cfg = cfg_replace(Config(), GAN={"FUSED_TAIL": True, "GF_DIM": 16,
+                                     "Z_DIM": 10, "CONDITION_DIM": 12},
+                      TEXT={"EMBEDDING_DIM": 24})
+    gen = build_generator(cfg)
+    assert gen.fused_tail and all(s.fused_tail for s in gen.next_stages)
+    plain = build_generator(cfg_replace(cfg, GAN={"FUSED_TAIL": False}))
+    assert not plain.fused_tail
+    assert {k: v.shape for k, v in gen.state_dict().items()} == \
+        {k: v.shape for k, v in plain.state_dict().items()}
 
 
 def test_unknown_upblock_variant_raises():

@@ -146,6 +146,18 @@ def test_import_guard_covers_every_module_of_the_train_slice():
             "data/synthetic.py", "train_gan.py"} <= sources
 
 
+def test_import_guard_covers_every_module_of_the_eval_slice():
+    """The modules the fused-tail and gen+eval slice added, and its CUDA
+    source among the sources the build compiles."""
+    from t2igan_torch.ops.kernels import build
+
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"ops/kernels/reschain.py", "models/inception.py",
+            "evaluation/__init__.py", "evaluation/fid.py"} <= sources
+    assert "reschain" in build.SOURCES
+    assert (build.CSRC_DIR / "reschain.cu").is_file()
+
+
 def test_importing_the_port_loads_no_jax_or_t2igan():
     """Import the package and every submodule in a fresh interpreter; no
     JAX, flax or t2igan module may appear in sys.modules."""
