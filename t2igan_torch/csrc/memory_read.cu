@@ -8,33 +8,51 @@
 //   attn      = softmax(logits)                 (f32)
 //   out[b,p,:] = sum_s attn[s] * v[b,s,:]       (f32, stored in the model dtype)
 //
-// The [B, HW, L] attention never reaches device memory.
+// The [B, HW, L] attention never reaches device memory.  In bf16 the
+// attention is rounded to bf16 before the read-out, as the TPU kernel does
+// (memory_read.py:55); in f32 nothing is rounded.
 //
 // What bounds it: per pixel the kernel must read q and write out, 2*C values,
 // while it does 4*L*C flops.  At the sampler's shapes (C = 64, L = 77,
 // bf16) that is 77 flops per byte of device memory, far below the H100's
 // ~295 bf16 tensor-core flops per byte, so the work is bound by device
-// memory bytes: the 128x128 stage at batch 128 moves ~0.54 GB, ~0.16 ms at
-// 3.35 TB/s.  Done in fp32 on the CUDA cores (67 TFLOP/s), the same 41 GFLOP
-// need ~0.6 ms, so this first version is bound by its arithmetic and by the
-// shared-memory loads that feed it, not by the bytes.
+// memory bytes: the 128x128 stage at batch 128 moves 0.54 GB, 0.160 ms at
+// 3.35 TB/s, where its 41.3 GFLOP take 0.042 ms at 989 TFLOP/s.
 //
-// What the design does about it:
+// bf16, on the tensor cores (memory_read_fwd_tc_kernel):
+//  * One block of 8 warps owns one batch row and a run of pixels (`tile`, a
+//    multiple of 128, sized by the wrapper so that the grid fills the
+//    card).  K and V of the row are staged once per block as
+//    bf16, L and C zero-padded to the kernel's (LP, CP) and rows padded by
+//    16 bytes so that ldmatrix is free of bank conflicts: 23 KB at L = 77,
+//    C = 64.
+//  * Each warp walks 16-pixel row tiles of the run.  Its query tiles come
+//    in through a two-stage cp.async ring of 16-byte copies (8-byte when
+//    C % 8 != 0; zero fill past the run and past C), so the next tile's
+//    load overlaps this tile's math.
+//  * S = Q K^T on mma.sync m16n8k16 (bf16 in, f32 accumulators); the masked
+//    softmax runs on the accumulator fragments with the row max and sum
+//    over the lane quad; P, rounded to bf16, is reused from registers as
+//    the A operand of O = P V (V through ldmatrix.trans).  Slots past L,
+//    which exist only because of the padding, are left out of the max and
+//    the sum; a padding slot of pad_mask gets -1e9 and stays in, so a fully
+//    padded row is uniform over the L real slots.
+//  * O is rounded to bf16, staged in the warp's spent query buffer and
+//    written as 16-byte rows.
+//  * The byte bound is what is left: 41 GFLOP are far below mma.sync's
+//    rate, so no wgmma is needed.
+//
+// f32 (the check dtype), on the CUDA cores (memory_read_fwd_kernel):
 //  * One block per (batch row, tile of 256 pixels); K (transposed, one
 //    padding column against bank conflicts) and V for that row are staged
-//    once in shared memory as f32, so device memory sees each q and out
-//    element once and K/V once per tile (from L2).
+//    once in shared memory as f32.
 //  * A warp computes a group of 8 pixels at a time: lanes split the L slots
-//    for the logits (each K value loaded from shared memory feeds 8 FMAs),
-//    warp-shuffle max and sum give the softmax, then lanes split the C
-//    channels for attn . v (each V value feeds 8 FMAs).  The group's q rows
-//    and attention rows sit in per-warp shared buffers read as float4
-//    broadcasts.
+//    for the logits, warp-shuffle max and sum give the softmax, then lanes
+//    split the C channels for attn . v.  The group's q rows and attention
+//    rows sit in per-warp shared buffers read as float4 broadcasts.
 //  * L <= 128 and C <= 128 are template parameters (slots and channels per
 //    lane), so every accumulator lives in registers.  Ragged pixel tiles are
-//    masked; slots past L are excluded and need no padding on the host.
-//  * Moving the two products onto the tensor cores (mma.sync / wgmma) is the
-//    next step toward the byte bound.
+//    masked; slots past L are excluded.
 //
 // C interface (loaded with ctypes): t2igan_memory_read_fwd returns the
 // cudaError_t of the launch.  It launches on the given stream, does not
@@ -45,6 +63,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;           // warps per block
@@ -54,13 +74,9 @@ constexpr int kTile = kWarps * kGroup * kGroupsPerWarp;  // pixels per block
 constexpr float kNeg = -1e9f;       // padding fill, as in the JAX package
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -275,19 +291,183 @@ cudaError_t launch_ns(const void* q, const void* k, const void* v, const void* p
   return cudaErrorInvalidValue;
 }
 
+// ---- bf16 on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 8;                   // warps per block
+constexpr int kTcRows = 16;                   // pixels a warp takes at a time
+constexpr int kTcStep = kTcWarps * kTcRows;   // pixels a block step covers
+constexpr int kMaxTile = 1 << 16;             // pixels a block may own
+
+// Shared memory: ks, vs [LP][CP + 8]; each warp's two query buffers
+// [2][16][CP + 8], the spent one reused for its output rows.
+template <int LP, int CP>
+constexpr size_t tc_smem_bytes() {
+  return (2 * (size_t)LP + (size_t)kTcWarps * 2 * kTcRows) * (CP + 8) * sizeof(bf16);
+}
+
+template <int LP, int CP>
+__global__ void __launch_bounds__(kTcWarps * 32)
+memory_read_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ pad,
+                          bf16* __restrict__ out, int hw, int L, int C, int tile) {
+  constexpr int S = CP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + LP * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* qw = vs + LP * S + warp * 2 * kTcRows * S;
+
+  const int b = blockIdx.y;
+  const bf16* qb = q + (size_t)b * hw * C;
+  bf16* ob = out + (size_t)b * hw * C;
+  const int p_end = min(hw, blockIdx.x * tile + tile);
+  const int p_first = blockIdx.x * tile + warp * kTcRows;  // this warp's first row tile
+  const int n_own = p_first < p_end ? (p_end - p_first + kTcStep - 1) / kTcStep : 0;
+
+  // K, V and the first query tile, all in flight at once.
+  mr::stage_kv_async<LP, CP>(ks, k + (size_t)b * L * C, L, C);
+  mr::stage_kv_async<LP, CP>(vs, v + (size_t)b * L * C, L, C);
+  if (n_own > 0) mr::load_rows_async<CP>(qw, qb, p_first, kTcRows, p_end, C, lane, 32);
+  mr::cp_async_commit();
+  uint32_t excluded, padded;
+  mr::slot_masks<LP>(pad == nullptr ? nullptr : pad + (size_t)b * L, L, lane, excluded, padded);
+  mr::cp_async_wait<0>();
+  __syncthreads();
+
+  for (int i = 0; i < n_own; ++i) {
+    const int p0 = p_first + i * kTcStep;
+    bf16* cur = qw + (i & 1) * kTcRows * S;
+    if (i + 1 < n_own)
+      mr::load_rows_async<CP>(qw + ((i + 1) & 1) * kTcRows * S, qb, p0 + kTcStep, kTcRows,
+                              p_end, C, lane, 32);
+    mr::cp_async_commit();
+    mr::cp_async_wait<1>();
+    __syncwarp();
+
+    // S = Q K^T: [16, LP] in C fragments of LP / 8 n-tiles.
+    float s[LP / 8][4];
+#pragma unroll
+    for (int j = 0; j < LP / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < CP / 16; ++kc) {
+      uint32_t a[4];
+      mr::ldmatrix_x4(a, mr::a_addr(cur, S, 0, kc * 16, lane));
+#pragma unroll
+      for (int jp = 0; jp < LP / 16; ++jp) {
+        uint32_t bb[4];
+        mr::ldmatrix_x4(bb, mr::bn_addr(ks, S, jp * 16, kc * 16, lane));
+        mr::mma_bf16(s[2 * jp], a, bb[0], bb[1]);
+        mr::mma_bf16(s[2 * jp + 1], a, bb[2], bb[3]);
+      }
+    }
+    mr::softmax_rows<LP>(s, excluded, padded);
+
+    // P in bf16, as the A fragments of O = P V.
+    uint32_t pa[LP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < LP / 16; ++kk) {
+      pa[kk][0] = mr::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = mr::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = mr::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = mr::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    float o[CP / 8][4];
+#pragma unroll
+    for (int j = 0; j < CP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < LP / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < CP / 16; ++np) {
+        uint32_t bb[4];
+        mr::ldmatrix_x4_trans(bb, mr::bk_addr(vs, S, kk * 16, np * 16, lane));
+        mr::mma_bf16(o[2 * np], pa[kk], bb[0], bb[1]);
+        mr::mma_bf16(o[2 * np + 1], pa[kk], bb[2], bb[3]);
+      }
+
+    // O in bf16 through the spent query buffer, out as 16-byte rows.
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < CP / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(cur + g * S + 8 * j + 2 * t) = mr::pack_bf16(o[j][0], o[j][1]);
+      *reinterpret_cast<uint32_t*>(cur + (g + 8) * S + 8 * j + 2 * t) =
+          mr::pack_bf16(o[j][2], o[j][3]);
+    }
+    __syncwarp();
+    if ((C & 7) == 0) {
+      for (int idx = lane; idx < kTcRows * (CP / 8); idx += 32) {
+        const int r = idx / (CP / 8), c = (idx - r * (CP / 8)) * 8;
+        if (p0 + r < p_end && c < C)
+          *reinterpret_cast<uint4*>(ob + (size_t)(p0 + r) * C + c) =
+              *reinterpret_cast<const uint4*>(cur + r * S + c);
+      }
+    } else {
+      for (int idx = lane; idx < kTcRows * (CP / 4); idx += 32) {
+        const int r = idx / (CP / 4), c = (idx - r * (CP / 4)) * 4;
+        if (p0 + r < p_end && c < C)
+          *reinterpret_cast<uint2*>(ob + (size_t)(p0 + r) * C + c) =
+              *reinterpret_cast<const uint2*>(cur + r * S + c);
+      }
+    }
+    __syncwarp();  // cur is refilled two tiles on
+  }
+}
+
+template <int LP, int CP>
+cudaError_t tc_launch(const void* q, const void* k, const void* v, const void* pad, void* out,
+                      int batch, int hw, int L, int C, int tile, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<LP, CP>();
+  auto kernel = memory_read_fwd_tc_kernel<LP, CP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((hw + tile - 1) / tile, batch), kTcWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<bf16*>(out), hw, L, C, tile);
+  return cudaGetLastError();
+}
+
+template <int LP>
+cudaError_t tc_launch_c(const void* q, const void* k, const void* v, const void* pad, void* out,
+                        int batch, int hw, int L, int C, int tile, cudaStream_t s) {
+  switch (mr::pick_channels(C)) {
+    case 16: return tc_launch<LP, 16>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 32: return tc_launch<LP, 32>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 64: return tc_launch<LP, 64>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 128: return tc_launch<LP, 128>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t tc_launch_l(const void* q, const void* k, const void* v, const void* pad, void* out,
+                        int batch, int hw, int L, int C, int tile, cudaStream_t s) {
+  switch (mr::pick_slots(L)) {
+    case 16: return tc_launch_c<16>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 32: return tc_launch_c<32>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 64: return tc_launch_c<64>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 80: return tc_launch_c<80>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 128: return tc_launch_c<128>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, out: [batch, hw, C]; k, v: [batch, L, C], all contiguous, f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1).  pad: [batch, L] bytes, nonzero at a
-// padding slot, or null for no padding.  Needs 1 <= L <= 128,
-// 4 <= C <= 128 with C % 4 == 0, batch <= 65535.
+// (is_bf16 = 0) or bf16 (is_bf16 = 1; every pointer 16-byte aligned).
+// pad: [batch, L] bytes, nonzero at a padding slot, or null for no padding.
+// tile: pixels per block of the bf16 kernel, a multiple of 128 in
+// 128..65536 (the f32 kernel takes 256 pixels per block).  Needs
+// 1 <= L <= 128, 4 <= C <= 128 with C % 4 == 0, batch <= 65535.
 extern "C" int t2igan_memory_read_fwd(const void* q, const void* k, const void* v,
                                       const void* pad, void* out, int batch, int hw, int L,
-                                      int C, int is_bf16, void* stream) {
+                                      int C, int tile, int is_bf16, void* stream) {
   if (batch < 1 || batch > 65535 || hw < 1 || L < 1 || L > 128 || C < 4 || C > 128 ||
-      C % 4 != 0)
+      C % 4 != 0 || tile < kTcStep || tile > kMaxTile || tile % kTcStep != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)launch_ns<__nv_bfloat16>(q, k, v, pad, out, batch, hw, L, C, s);
+  if (is_bf16) return (int)tc_launch_l(q, k, v, pad, out, batch, hw, L, C, tile, s);
   return (int)launch_ns<float>(q, k, v, pad, out, batch, hw, L, C, s);
 }

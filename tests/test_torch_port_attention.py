@@ -100,6 +100,7 @@ def test_memory_read_plain_keeps_model_dtype(rng):
     (dict(dtype=torch.float16), "f32 or bf16"),
     (dict(noncontig=True), "contiguous"),
     (dict(mask_dtype=torch.int32), "pad_mask"),
+    (dict(dtype=torch.bfloat16, misaligned=True), "16-byte"),
 ])
 def test_kernel_argument_checks(bad, match):
     """What the CUDA kernel does not take is refused before any launch."""
@@ -108,6 +109,8 @@ def test_kernel_argument_checks(bad, match):
     q = torch.zeros(b, 4, 4, c, dtype=dtype)
     if bad.get("noncontig"):
         q = torch.zeros(b, c, 4, 4, dtype=dtype).permute(0, 3, 2, 1)
+    if bad.get("misaligned"):
+        q = torch.zeros(b * 4 * 4 * c + 1, dtype=dtype)[1:].view(b, 4, 4, c)
     k = torch.zeros(b, l, c, dtype=dtype)
     pad = torch.zeros(b, l, dtype=bad.get("mask_dtype", torch.bool))
     with pytest.raises(ValueError, match=match):
