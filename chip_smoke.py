@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
 
 1. prints the card's name and power limit, builds every CUDA kernel with
    ``nvcc`` (one process per source, in parallel) and prints the build
-   times and the ptxas registers and spills;
+   times and the ptxas registers and spills (per kernel for K3);
 2. holds each kernel to its plain PyTorch version on the card, at the
    paths' shapes and at the edges of what the kernel takes, f32 and bf16,
    masked and unmasked, with ragged pixel counts, and prints the error
@@ -20,7 +20,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    run-to-run determinism and the ``MemoryRead`` autograd pairing; the
    fused eval stage tail (K3) at the sampler's stage shapes and at its
    edges (R = 1 and 3, 17x19, C = 16, batch 1, BN shifts +3 at the
-   border), and K3 on folded weights against the port's eval module chain;
+   border, and the bf16 kernels' tile edges: 96x40, a ragged 24x100,
+   H = 1, batch 1 at 128^2 with the head), and K3 on folded weights
+   against the port's eval module chain;
 3. drives the sampler: ``t2igan_torch.generate.generate`` at the widths of
    ``t2igan_torch/configs/eval_clip_bird.yml`` (full ViT-B/32 text tower,
    weights from a seed) on caption requests at the YAML's batch of 10, and
@@ -45,8 +47,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    the train step at batch 16 (the JAX bench's shapes) in bf16, and each
    kernel beside its plain version, its bound and one PyTorch library
    call where one computes the same function (K3 has none; the port's
-   unfused eval module chain for the same tail is timed beside it), with
-   CUDA events.  The kernel rows are device times: the calls are queued
+   unfused eval module chain for the same tail is timed beside it, and
+   cuDNN for each of its conv kinds, as a yardstick), with CUDA events.  The kernel rows are device times: the calls are queued
    behind a sleep kernel, so the card runs them back to back whatever the
    host takes to launch them; the host time of a wrapper call is printed
    beside them.
@@ -61,6 +63,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -102,7 +105,17 @@ RESCHAIN_CASES = [(16, (64, 64), TAIL_CHANNELS, 2, False, True, 0.0),
                   (2, (17, 19), TAIL_CHANNELS, 2, True, True, 0.0),
                   (2, (16, 16), 16, 2, True, True, 0.0),
                   (1, (64, 64), TAIL_CHANNELS, 2, False, True, 0.0),
-                  (2, (16, 16), TAIL_CHANNELS, 2, False, True, 3.0)]
+                  (2, (16, 16), TAIL_CHANNELS, 2, False, True, 3.0),
+                  # Tile edges of the bf16 kernels (tile_geometry): 96x40
+                  # (8-wide patches), 24x100 (the last patch ragged), H = 1
+                  # (one 128-wide patch, half outside), batch 1 at the
+                  # last stage with the head.
+                  (2, (96, 40), TAIL_CHANNELS, 2, True, True, 0.0),
+                  (2, (24, 100), TAIL_CHANNELS, 1, True, True, 0.0),
+                  (4, (1, 64), TAIL_CHANNELS, 1, True, True, 0.0),
+                  (1, (128, 128), TAIL_CHANNELS, 2, True, True, 0.0),
+                  # C = 256: two N tiles in every conv.
+                  (2, (16, 16), 2 * TAIL_CHANNELS, 1, True, True, 0.0)]
 
 
 # (batch, HW, C, L) of the kernel checks: the paths' shapes at batch 16,
@@ -111,6 +124,36 @@ RESCHAIN_CASES = [(16, (64, 64), TAIL_CHANNELS, 2, False, True, 0.0),
 KERNEL_CASES = [(16, hw, CHANNELS, SLOTS) for hw in STAGE_HW + ((17, 19),)]
 KERNEL_CASES += [(16, STAGE_HW[0], 32, SLOTS), (3, (5, 7), 4, 1),
                  (2, (33, 9), 36, 33), (2, (16, 16), 128, 128)]
+
+
+def ptxas_kernels(log):
+    """(kernel, registers, spill-store bytes) per entry of a ptxas -v log,
+    the kernel named by its identifier and template integers
+    (``conv_tc<0,256>``)."""
+    out, name, spills = [], None, 0
+    for line in log:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            # _ZN<len><namespace><len><identifier>[I<Li<n>E>...E]...
+            sym = m.group(1)
+            parts = []
+            rest = sym[3:] if sym.startswith("_ZN") else sym[2:]
+            while len(parts) < 2 and re.match(r"\d+", rest):
+                n = re.match(r"\d+", rest)
+                parts.append(rest[n.end():n.end() + int(n.group())])
+                rest = rest[n.end() + int(n.group()):]
+            name = parts[-1] if parts else sym
+            args = re.match(r"I((?:Li\d+E)+)E", rest)
+            if args:
+                name += "<" + ",".join(re.findall(r"Li(\d+)E",
+                                                  args.group(1))) + ">"
+            spills = 0
+        elif "bytes spill stores" in line:
+            spills = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, int(line.split("Used")[1].split()[0]), spills))
+            name = None
+    return out
 
 
 def card_line() -> str:
@@ -1043,10 +1086,14 @@ def time_sampler(card):
 def time_reschain(card, results):
     """Phase 5e: K3 at each stage shape of the timed sampler (batch 128,
     bf16) against resblock_chain_up_plain and, for context, the port's
-    eval module chain for the same tail, beside its bound."""
+    eval module chain for the same tail, beside its bound, and cuDNN for
+    each conv kind.  K3 runs as the sampler runs it: on operands laid out
+    once (``lay_out_operands``; ``NextStageG`` keeps them), through
+    ``fused_tail``."""
     import torch
 
-    from t2igan_torch.ops.kernels.reschain import (resblock_chain_up_fused,
+    from t2igan_torch.ops.kernels.reschain import (fused_tail,
+                                                   lay_out_operands,
                                                    resblock_chain_up_plain)
 
     b, c, n_res = TIMED_BATCH, TAIL_CHANNELS, 2
@@ -1073,14 +1120,15 @@ def time_reschain(card, results):
         t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
         bound = max(t_bytes, t_ops)
         with torch.inference_mode():
-            ms, _ = queued_ms(lambda: resblock_chain_up_fused(
-                x, rb, *up, head, not rgb), iters=10)
+            ops = lay_out_operands(rb, *up, head, torch.bfloat16)
+            ms, host = queued_ms(lambda: fused_tail(x, ops, not rgb), iters=10)
             plain, _ = queued_ms(lambda: resblock_chain_up_plain(
                 x, rb, *up, head, not rgb), iters=5)
             mod_ms, _ = queued_ms(lambda: chain(x_nchw), iters=10)
         print(f"[{card}] reschain bf16 B={b} HW={hw[0]}x{hw[1]} C={c} "
               f"R={n_res} {'RGB head only' if rgb else 'features'}: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, eval module chain "
+              f"{ms:.4f} ms (host {host:.1f} us a call), plain {plain:.4f} ms, "
+              f"eval module chain "
               f"{mod_ms:.4f} ms, bound {bound:.4f} ms (bytes "
               f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
               f"{flops / 1e12:.3f} TFLOP -> {t_ops:.4f} ms), "
@@ -1090,13 +1138,61 @@ def time_reschain(card, results):
         chain_total += mod_ms
         results["reschain"]["bound_by"] = ("bytes" if t_bytes >= t_ops
                                            else "operations")
-        del mods, chain, x, x_nchw
+        del mods, chain, ops
+        time_cudnn_convs(card, x_nchw, rgb)
+        del x, x_nchw
     results["reschain"].update(totals)
     # No single PyTorch call computes the fused tail.
     results["reschain"]["library_ms"] = None
     print(f"[{card}] reschain, both stages: kernel {totals['ms']:.3f} ms, "
           f"plain {totals['plain_ms']:.3f} ms, eval module chain "
           f"{chain_total:.3f} ms, bound {totals['bound_ms']:.3f} ms")
+
+
+def time_cudnn_convs(card, x_nchw, rgb):
+    """Each launch kind of K3 at one stage shape: the work of one launch
+    and its bound at the card's peak, beside cuDNN (``F.conv2d``,
+    channels-last bf16) for the same conv as the module chain runs it, the
+    yardstick of that kind: C -> 2C and C -> C 3x3 on x, C -> C over the
+    nearest-2x map (K3's four subpixel phases do 4/9 of its flops), the
+    head C/2 -> 3 on the 2x map (bound by the bytes it reads).  The port
+    never calls these."""
+    import torch
+    import torch.nn.functional as F
+
+    b, c, h, w = x_nchw.shape
+    n = h * w
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def weight(cout, cin):
+        return (torch.randn((cout, cin, 3, 3), generator=g, device="cuda")
+                * (9 * cin) ** -0.5).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+
+    def ops_ms(flops):
+        return flops / PEAK_FLOPS["bf16"] * 1e3
+
+    x2 = F.interpolate(x_nchw, scale_factor=2, mode="nearest").contiguous(
+        memory_format=torch.channels_last)
+    # (kind, K3's flops a launch, its bound ms, cuDNN input, weight)
+    kinds = [("C->2C + GLU", 2 * b * n * 9 * c * 2 * c, x_nchw, weight(2 * c, c)),
+             ("C->C + residual", 2 * b * n * 9 * c * c, x_nchw, weight(c, c)),
+             ("upsample phases + GLU", 2 * b * n * 16 * c * c, x2,
+              weight(c, c))]
+    kinds = [(k, f, ops_ms(f), i, wt) for k, f, i, wt in kinds]
+    if rgb:
+        up = x2[:, :c // 2].contiguous(memory_format=torch.channels_last)
+        head_bytes = 2 * (b * 4 * n * (c // 2) + b * 4 * n * 3)
+        kinds.append(("RGB head", 2 * b * 4 * n * 9 * (c // 2) * 3,
+                      head_bytes / HBM_BYTES_PER_S * 1e3, up,
+                      weight(3, c // 2)))
+    with torch.inference_mode():
+        for name, flops, bound, inp, wt in kinds:
+            ms, _ = queued_ms(lambda: F.conv2d(inp, wt, padding=1), iters=10)
+            print(f"[{card}] K3 kind {name}, B={b} HW={h}x{w} C={c}: "
+                  f"{flops / 1e9:.1f} GFLOP a launch, bound {bound:.4f} ms; "
+                  f"cuDNN F.conv2d bf16 channels-last (yardstick, not in the "
+                  f"port) {ms:.4f} ms")
 
 
 def time_memory_read(card, results):
@@ -1173,6 +1269,10 @@ def main() -> int:
         print(f"build {name}.cu: {seconds[name]:.1f} s -> {lib.name}; ptxas: "
               f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"{spills} bytes of spill stores")
+        if name == "reschain":
+            print("build reschain.cu kernels (registers, spill stores): "
+                  + ", ".join(f"{k} {r} ({b} B)"
+                              for k, r, b in ptxas_kernels(log)))
 
     results = {
         "memory_read_fwd": {

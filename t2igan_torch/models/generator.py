@@ -20,9 +20,10 @@ upsample then conv3x3 (then BN, GLU, RGB conv, tanh), for every setting.
 
 ``GAN.FUSED_TAIL`` (``fused_tail=True``) sends each refinement stage's
 eval-mode tail (ResBlocks, UpBlock and, at the last stage, the RGB head)
-through :func:`t2igan_torch.ops.kernels.reschain.resblock_chain_up_fused`
+through the fused tail kernel (:mod:`t2igan_torch.ops.kernels.reschain`)
 on weights folded by the modules' ``fold()``, as the JAX package does;
-training keeps the module chain.
+the folded and laid-out weights are kept on the stage until a weight
+changes.  Training keeps the module chain.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from torch import nn
 
 from t2igan_torch.ops.attention import memory_read
 from t2igan_torch.ops.image import upsample_nearest_2x
-from t2igan_torch.ops.kernels.reschain import resblock_chain_up_fused
+from t2igan_torch.ops.kernels import reschain
 
 UPBLOCK_VARIANTS = ("dilated", "naive", "subpixel")
 
@@ -194,6 +195,7 @@ class NextStageG(nn.Module):
                  upblock: str = "dilated", fused_tail: bool = False):
         super().__init__()
         self.fused_tail = fused_tail
+        self._tail_key, self._tail_ops = None, None  # see _tail_operands
         self.A = nn.Linear(nef, 1, bias=False)
         self.B = nn.Linear(ngf, 1, bias=False)
         self.M_w = nn.Linear(nef, 2 * ngf)
@@ -247,11 +249,30 @@ class NextStageG(nn.Module):
         """ResBlocks, UpBlock (and the RGB head) in one fused-tail call on
         the NHWC view of the channels-last map; the result comes back as
         an NCHW view."""
-        out = resblock_chain_up_fused(
-            h_new.permute(0, 2, 3, 1), [b.fold() for b in self.residual],
-            *self.upsample.fold(), rgb_kernel=rgb_kernel,
-            want_h=rgb_kernel is None)
+        x = h_new.permute(0, 2, 3, 1)
+        out = reschain.fused_tail(x, self._tail_operands(rgb_kernel, x.dtype),
+                                  want_h=rgb_kernel is None)
         return out.permute(0, 3, 1, 2)
+
+    def _tail_operands(self, rgb_kernel: Optional[torch.Tensor],
+                       dtype: torch.dtype) -> reschain.TailOperands:
+        """The tail's folded and laid-out weights, rebuilt only when one of
+        its parameters or buffers (or the head's kernel) changed: keyed on
+        each one's ``(data_ptr, _version)``, which ``load_state_dict``, the
+        optimizer, EMA copies and ``.to()`` all move."""
+        tensors = [*self.residual.parameters(), *self.residual.buffers(),
+                   *self.upsample.parameters(), *self.upsample.buffers()]
+        if rgb_kernel is not None:
+            tensors.append(rgb_kernel)
+        key = (dtype, rgb_kernel is not None,
+               tuple((t.data_ptr(), t._version) for t in tensors))
+        if self._tail_key != key:
+            with torch.no_grad():
+                self._tail_ops = reschain.lay_out_operands(
+                    [b.fold() for b in self.residual], *self.upsample.fold(),
+                    rgb_kernel, dtype)
+            self._tail_key = key
+        return self._tail_ops
 
 
 class GetImageG(nn.Module):

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +25,22 @@ from t2igan_torch.ops.kernels import LAUNCHES, build
 
 KERNEL = "reschain"
 CHANNEL_MULTIPLE = 16  # the kernel's channel tiling (16-deep products)
+
+# Tiles of the bf16 kernels (tile_geometry): a conv tile is a patch of one
+# image, TILE_PIXELS[mode] output pixels (the wgmma row blocks of its two
+# consumer warpgroups: one each for the N = 2C convs, two for N = C), its
+# width one of PATCH_COLS; a head tile is an 8 x 32 patch read with its
+# halo.  TMA boxes are BOX_CHANNELS[mode] deep: 64 (128 bytes, the 128-byte
+# swizzle) or 32 (64 bytes, the 64-byte swizzle).
+TILE_PIXELS = {"glu": 128, "residual": 256, "up": 256}
+CONV_MODES = tuple(TILE_PIXELS)
+# The bf16 affine rows are zero-padded to a multiple of AFFINE_PAD columns
+# (a multiple of every conv tile's N), so the epilogue runs without a
+# branch on the columns.
+AFFINE_PAD = 256
+PATCH_COLS = (128, 64, 32, 16, 8)
+HEAD_TILE = (8, 32)
+BOX_CHANNELS = {"glu": 64, "residual": 32, "up": 64, "head": 64}
 
 # Tap sets of the subpixel decomposition of conv3x3-over-nearest-2x (a copy
 # of the JAX package's ``_PHASE_TAPS``): output row 2i+a reads low-res rows
@@ -95,15 +111,62 @@ def resblock_chain_up_plain(x: torch.Tensor, rb_params: Sequence[RbParams],
     return (up_nhwc, rgb) if want_h else rgb
 
 
+class TileGeometry(NamedTuple):
+    """How a bf16 kernel of K3 cuts its output into tiles: a patch of
+    ``rows`` x ``cols`` pixels of one image, ``tiles_y`` x ``tiles_x``
+    patches an image, and the TMA box of its input tile, innermost first
+    (channels, columns, rows, images)."""
+
+    rows: int
+    cols: int
+    tiles_y: int
+    tiles_x: int
+    box: Tuple[int, int, int, int]
+
+
+def tile_geometry(h: int, w: int, mode: str) -> TileGeometry:
+    """Tiles of the bf16 kernels over an [h, w] grid.
+
+    ``mode`` "glu", "residual" or "up" (the convs; for "up", [h, w] is the
+    low-res input grid and each tile is one subpixel phase of its
+    pixels): a patch of ``TILE_PIXELS[mode]`` pixels, the wgmma tile's M,
+    ``cols`` one of :data:`PATCH_COLS` and ``rows`` the rest, the one that
+    needs the fewest patches (the wider on a tie); the box is that patch.
+    ``mode`` "head" (the RGB head over the 2x grid): the head kernel's
+    fixed 8 x 32 patch and a box with its one-pixel halo.  Boxes are
+    ``BOX_CHANNELS[mode]`` deep; every box dimension is at most 256, and
+    the inner one spans the row of its swizzle (64 or 128 bytes)."""
+    if h < 1 or w < 1:
+        raise ValueError(f"tile_geometry takes h, w >= 1, got {h}, {w}")
+    if mode == "head":
+        rows, cols = HEAD_TILE
+        return TileGeometry(rows, cols, -(-h // rows), -(-w // cols),
+                            (BOX_CHANNELS[mode], cols + 2, rows + 2, 1))
+    if mode not in CONV_MODES:
+        raise ValueError(f"unknown tile mode {mode!r}; expected one of "
+                         f"{CONV_MODES + ('head',)}")
+
+    pixels = TILE_PIXELS[mode]
+
+    def tiles(cols):
+        return -(-h // (pixels // cols)), -(-w // cols)
+
+    cols = min(PATCH_COLS, key=lambda c: (tiles(c)[0] * tiles(c)[1], -c))
+    rows = pixels // cols
+    return TileGeometry(rows, cols, *tiles(cols),
+                        (BOX_CHANNELS[mode], cols, rows, 1))
+
+
 def check_kernel_args(x: torch.Tensor, rb_params: Sequence[RbParams],
                       up_kernel: torch.Tensor, up_scale: torch.Tensor,
                       up_shift: torch.Tensor,
                       rgb_kernel: Optional[torch.Tensor],
                       want_h: bool) -> None:
     """Raise ``ValueError`` on anything the kernel does not take: x not a
-    contiguous f32/bf16 [B, H, W, C] with C a positive multiple of 16, no
-    residual block, a weight of another shape or device, a nothing-to-do
-    call."""
+    contiguous f32/bf16 [B, H, W, C] with C a positive multiple of 16, a
+    bf16 x that TMA cannot read (not on a 16-byte boundary, or a pixel's
+    channels not a multiple of 16 bytes), no residual block, a weight of
+    another shape or device, a nothing-to-do call."""
     if not want_h and rgb_kernel is None:
         raise ValueError("nothing to compute: want_h=False and no rgb head")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -114,6 +177,15 @@ def check_kernel_args(x: torch.Tensor, rb_params: Sequence[RbParams],
         raise ValueError("reschain kernel takes a contiguous NHWC x (an NCHW "
                          "map in channels_last memory, permuted)")
     b, h, w, c = x.shape
+    if x.dtype == torch.bfloat16:
+        # TMA reads the maps: a base on a 16-byte boundary, and rows (a
+        # pixel's channels, C of x and C/2 of the upsampled map) of whole
+        # 16-byte units.
+        if x.data_ptr() % 16:
+            raise ValueError("bf16 x must start on a 16-byte boundary")
+        if (c * x.element_size()) % 16 or (c // 2 * x.element_size()) % 16:
+            raise ValueError(f"bf16 rows of C = {c} and C/2 channels must be "
+                             f"multiples of 16 bytes")
     if c < CHANNEL_MULTIPLE or c % CHANNEL_MULTIPLE:
         raise ValueError(f"reschain kernel takes C a multiple of "
                          f"{CHANNEL_MULTIPLE}, got {c}")
@@ -151,6 +223,79 @@ def _affine_pair(scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return torch.stack([scale, shift]).float().contiguous()
 
 
+def glu_column_order(n: int, device=None) -> torch.Tensor:
+    """The bf16 kernels' GEMM column order of a GLU conv with ``n`` output
+    columns (values ``[0, n/2)``, gates ``[n/2, n)``): GEMM column ``16q + i``
+    is value channel ``8q + i`` for ``i < 8`` and the gate of channel
+    ``8q + i - 8`` otherwise, so the wgmma accumulator thread that holds a
+    channel's value also holds its gate.  Entry j is the source column of
+    GEMM column j (on ``device``: made there, so laying out the weights
+    never waits for the card)."""
+    if n % 16:
+        raise ValueError(f"GLU columns come in groups of 16, got {n}")
+    j = torch.arange(n, device=device)
+    group, i = j // 16, j % 16
+    return torch.where(i < 8, 8 * group + i, n // 2 + 8 * group + i - 8)
+
+
+class TailOperands(NamedTuple):
+    """K3's operands laid out for the kernels of one dtype: the folded
+    weights as given (``folded``, what the plain version takes) and the
+    GEMM-ordered copies that the C entry reads.  bf16: the GLU convs'
+    columns in :func:`glu_column_order` (``w1``/``a1``, and ``w_up``/``a_up``
+    per subpixel phase), the affine rows zero-padded to a multiple of
+    :data:`AFFINE_PAD` columns; f32: the plain [Cout, taps*Cin] order, all
+    values then all gates."""
+
+    folded: tuple
+    dtype: torch.dtype
+    w1: Tuple[torch.Tensor, ...]
+    a1: Tuple[torch.Tensor, ...]
+    w2: Tuple[torch.Tensor, ...]
+    a2: Tuple[torch.Tensor, ...]
+    w_up: torch.Tensor
+    a_up: torch.Tensor
+    w_rgb: Optional[torch.Tensor]
+
+
+def lay_out_operands(rb_params: Sequence[RbParams], up_kernel: torch.Tensor,
+                     up_scale: torch.Tensor, up_shift: torch.Tensor,
+                     rgb_kernel: Optional[torch.Tensor],
+                     dtype: torch.dtype) -> TailOperands:
+    """Lay out the folded weights for the kernels of ``dtype`` (on their
+    own device).  Worth keeping while the weights do not change: it is
+    ~50 small tensor ops a stage."""
+
+    tc = dtype == torch.bfloat16
+
+    def affine(scale, shift, order=None):
+        a = _affine_pair(scale, shift)
+        if not tc:
+            return a
+        if order is not None:
+            a = a.index_select(-1, order)
+        return F.pad(a, (0, -a.shape[-1] % AFFINE_PAD)).contiguous()
+
+    def glu(kernel, scale, shift):
+        w = _gemm_weight(kernel, dtype)
+        if not tc:
+            return w, affine(scale, shift)
+        order = glu_column_order(w.shape[-2], w.device)
+        return (w.index_select(-2, order).contiguous(),
+                affine(scale, shift, order))
+
+    first = [glu(p[0], p[1], p[2]) for p in rb_params]
+    w_up, a_up = glu(phase_kernels(up_kernel.float()), up_scale, up_shift)
+    return TailOperands(
+        folded=(tuple(rb_params), up_kernel, up_scale, up_shift, rgb_kernel),
+        dtype=dtype, w1=tuple(w for w, _ in first),
+        a1=tuple(a for _, a in first),
+        w2=tuple(_gemm_weight(p[3], dtype) for p in rb_params),
+        a2=tuple(affine(p[4], p[5]) for p in rb_params),
+        w_up=w_up, a_up=a_up,
+        w_rgb=None if rgb_kernel is None else _gemm_weight(rgb_kernel, dtype))
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load(KERNEL).t2igan_reschain
@@ -158,7 +303,8 @@ def _entry():
                    + [ctypes.c_void_p] * 4        # per-block pointer arrays
                    + [ctypes.c_void_p] * 3        # up weight, up affine, rgb
                    + [ctypes.c_void_p] * 4        # up out, rgb out, 2 scratch
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5           # B, H, W, C, is_bf16
+                   + [ctypes.c_void_p] * 2)       # geometry, stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -177,10 +323,12 @@ def resblock_chain_up_fused(x: torch.Tensor, rb_params: Sequence[RbParams],
     [B, 2H, 2W, C/2], ``(up, rgb)`` or ``rgb`` [B, 2H, 2W, 3] in x's dtype,
     as :func:`resblock_chain_up_plain`.
 
-    On a CUDA tensor this launches the kernels of ``csrc/reschain.cu``
-    (one C call, 2R + 1 or 2R + 2 device kernels, counted once in
-    ``LAUNCHES["reschain"]``) and raises on anything they do not take; on
-    a CPU tensor it runs :func:`resblock_chain_up_plain`.
+    On a CUDA tensor this lays the weights out (:func:`lay_out_operands`)
+    and launches the kernels of ``csrc/reschain.cu`` (one C call, 2R + 1 or
+    2R + 2 device kernels, counted once in ``LAUNCHES["reschain"]``), and
+    raises on anything they do not take; on a CPU tensor it runs
+    :func:`resblock_chain_up_plain`.  A caller that keeps the laid-out
+    weights calls :func:`fused_tail` instead.
     """
     if x.device.type == "cpu":
         return resblock_chain_up_plain(x, rb_params, up_kernel, up_scale,
@@ -189,18 +337,31 @@ def resblock_chain_up_fused(x: torch.Tensor, rb_params: Sequence[RbParams],
         raise ValueError(f"reschain runs on cuda or cpu, not {x.device}")
     check_kernel_args(x, rb_params, up_kernel, up_scale, up_shift,
                       rgb_kernel, want_h)
+    return fused_tail(x, lay_out_operands(rb_params, up_kernel, up_scale,
+                                          up_shift, rgb_kernel, x.dtype),
+                      want_h)
+
+
+def fused_tail(x: torch.Tensor, ops: TailOperands, want_h: bool = True):
+    """:func:`resblock_chain_up_fused` on operands laid out beforehand
+    (:func:`lay_out_operands`, in x's dtype): the plain version on
+    ``ops.folded`` for a CPU x; the kernels on a CUDA x."""
+    if x.device.type == "cpu":
+        return resblock_chain_up_plain(x, *ops.folded, want_h)
+    if x.device.type != "cuda":
+        raise ValueError(f"reschain runs on cuda or cpu, not {x.device}")
+    if ops.dtype != x.dtype:
+        raise ValueError(f"operands laid out for {ops.dtype}, x is {x.dtype}")
+    check_kernel_args(x, *ops.folded, want_h)
     dtype = x.dtype
     b, h, w, c = x.shape
-    n_res = len(rb_params)
-    # The B operands, laid out once per call (they are small: 0.3 MB per
-    # conv at C = 128 in bf16); kept alive until the launches are queued.
-    w1 = [_gemm_weight(p[0], dtype) for p in rb_params]
-    a1 = [_affine_pair(p[1], p[2]) for p in rb_params]
-    w2 = [_gemm_weight(p[3], dtype) for p in rb_params]
-    a2 = [_affine_pair(p[4], p[5]) for p in rb_params]
-    w_up = _gemm_weight(phase_kernels(up_kernel.float()), dtype)
-    a_up = _affine_pair(up_scale, up_shift)
-    w_rgb = None if rgb_kernel is None else _gemm_weight(rgb_kernel, dtype)
+    n_res = len(ops.w1)
+    geometry = []
+    for mode in CONV_MODES + ("head",):
+        geo = tile_geometry(*((2 * h, 2 * w) if mode == "head" else (h, w)),
+                            mode)
+        geometry += [*geo[:4], geo.box[0]]
+    geometry = (ctypes.c_int * len(geometry))(*geometry)
 
     def ptrs(ts):
         return (ctypes.c_void_p * n_res)(*[t.data_ptr() for t in ts])
@@ -209,15 +370,16 @@ def resblock_chain_up_fused(x: torch.Tensor, rb_params: Sequence[RbParams],
     with torch.cuda.device(x.device):
         up = torch.empty((b, 2 * h, 2 * w, c // 2), dtype=dtype,
                          device=x.device)
-        rgb = (None if w_rgb is None else
+        rgb = (None if ops.w_rgb is None else
                torch.empty((b, 2 * h, 2 * w, 3), dtype=dtype, device=x.device))
         scratch = torch.empty((2, b, h, w, c), dtype=dtype, device=x.device)
-        err = fn(x.data_ptr(), n_res, ptrs(w1), ptrs(a1), ptrs(w2), ptrs(a2),
-                 w_up.data_ptr(), a_up.data_ptr(),
-                 None if w_rgb is None else w_rgb.data_ptr(),
+        err = fn(x.data_ptr(), n_res, ptrs(ops.w1), ptrs(ops.a1),
+                 ptrs(ops.w2), ptrs(ops.a2),
+                 ops.w_up.data_ptr(), ops.a_up.data_ptr(),
+                 None if ops.w_rgb is None else ops.w_rgb.data_ptr(),
                  up.data_ptr(), None if rgb is None else rgb.data_ptr(),
                  scratch[0].data_ptr(), scratch[1].data_ptr(),
-                 b, h, w, c, int(dtype == torch.bfloat16),
+                 b, h, w, c, int(dtype == torch.bfloat16), geometry,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"reschain kernel launch failed with CUDA error "

@@ -43,7 +43,16 @@ from t2igan_torch.train.train_gan import CondGanTrainer
 FAMILIES = (
     ("memory_read_fwd (K1)", ("memory_read_fwd",)),
     ("memory_read_bwd (K2)", ("memory_read_bwd",)),
-    ("reschain (K3)", ("reschain",)),
+    # K3 by launch kind: the bf16 kernels (conv_tc<mode, N>, rgb_head_tc)
+    # and the f32 ones (reschain_conv<mode, ...>), names demangled or not.
+    ("K3 conv C->2C + GLU", ("conv_tc<0", "conv_tcili0e",
+                             "reschain_conv<0", "reschain_convili0e")),
+    ("K3 conv C->C + residual", ("conv_tc<1", "conv_tcili1e",
+                                 "reschain_conv<1", "reschain_convili1e")),
+    ("K3 upsample phases + GLU", ("conv_tc<2", "conv_tcili2e",
+                                  "reschain_conv<2", "reschain_convili2e")),
+    ("K3 RGB head", ("rgb_head_tc", "reschain_conv<3",
+                     "reschain_convili3e")),
     ("nearest upsample", ("upsample",)),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),

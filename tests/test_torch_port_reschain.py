@@ -174,6 +174,12 @@ def _kernel_args(c=16, n_res=2, with_rgb=True, dtype=torch.float32):
     (dict(rgb_kernel=None, want_h=False), "nothing to compute"),
     (dict(up_kernel=torch.zeros((3, 3, 16, 8))), r"\(3, 3, 16, 16\)"),
     (dict(rgb_kernel=torch.zeros((3, 3, 16, 3))), r"\(3, 3, 8, 3\)"),
+    # TMA's rules for the bf16 kernels: a 16-byte aligned base, rows of
+    # C and C/2 channels in whole 16-byte units.
+    (dict(x=torch.zeros(2 * 4 * 4 * 16 + 1, dtype=torch.bfloat16)[1:]
+          .view(2, 4, 4, 16)), "16-byte boundary"),
+    (dict(x=torch.zeros((2, 4, 4, 24), dtype=torch.bfloat16)),
+     "multiples of 16 bytes"),
 ])
 def test_kernel_arg_checks(change, match):
     args = dict(_kernel_args(), **change)
