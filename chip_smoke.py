@@ -43,8 +43,19 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    vectors and the EMA moved, the EMA rule, and 4 K1, 4 K2 and 0 K3
    launches per step; then holds one f32 step on the card to the same
    step on the CPU at batch 2;
-5. times the sampler and gen+eval at batch 128 in both tail settings and
-   the train step at batch 16 (the JAX bench's shapes) in bf16, and each
+4b. drives DAMSM fine-tuning: the ``pretrain_damsm`` trainer at the full
+   width of ``configs/damsm/bird.yml`` (ViT-B/32, batch 48, 224 px, 30
+   tokens) for 2 epochs in bf16; it checks finite metrics, that both
+   optimizer groups moved and ``logit_scale`` did not, each group's lr
+   against its one-cycle schedule at every step, no K1, K2 or K3 launch,
+   ``clip0.pth``/``clip1.pth``, bitwise-equal encodings from
+   ``clip1.pth`` read into a fresh module, and ``CondGanTrainer`` holding
+   exactly those weights through ``TRAIN.CLIP_MODEL_CHECKPOINT``;
+4c. holds one f32 DAMSM step on the card to the CPU at batch 4 (metrics
+   and every gradient), then both optimizers fed the same gradients;
+5. times the sampler and gen+eval at batch 128 in both tail settings,
+   the train step at batch 16 and the DAMSM step at batch 48 (the JAX
+   bench's shapes) in bf16 (the DAMSM step in f32 too), and each
    kernel beside its plain version, its bound and one PyTorch library
    call where one computes the same function (K3 has none; the port's
    unfused eval module chain for the same tail is timed beside it, and
@@ -854,7 +865,7 @@ def drive_train_path(results):
 
 
 def check_train_step_card_vs_cpu():
-    """Phase 4b: one f32 step (TF32 off) on the card against the same step
+    """Phase 4a, card vs CPU: one f32 step (TF32 off) on the card against the same step
     on the CPU: same weights, batch and noise, batch 2, full width.  SGD
     (lr 0.01) replaces Adam here, so that the parameter changes compare the
     gradients rather than Adam's first-step sign."""
@@ -930,6 +941,246 @@ def check_train_step_card_vs_cpu():
     if not ok:
         raise AssertionError("f32 train step on the card disagrees with "
                              "the CPU")
+
+
+def scratch_dir() -> str:
+    """``output/`` of the checkout (git ignores it), for files a phase
+    writes and deletes."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def drive_damsm_path():
+    """Phase 4b: the DAMSM trainer at the full width of damsm/bird.yml
+    (ViT-B/32, batch 48, 224 px, 30 tokens) in bf16 for 2 epochs of the
+    synthetic data (2 steps each), one validation batch an epoch, in a
+    temporary directory under the checkout's ``output/``.  It checks
+    finite metrics, that both optimizer groups moved and logit_scale did
+    not, each group's lr against its one-cycle schedule at every step, no
+    K1/K2/K3 launch, clip0.pth and clip1.pth, clip1.pth read into a fresh
+    module giving bitwise-equal encodings, and CondGanTrainer holding
+    exactly those weights when TRAIN.CLIP_MODEL_CHECKPOINT names the
+    file."""
+    import tempfile
+
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import CLIP_BIRD_DMGAN, DAMSM_BIRD
+    from t2igan_torch.models.convert import load_clip_pth
+    from t2igan_torch.models.factory import build_clip
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.pretrain_damsm import DamsmTrainer
+    from t2igan_torch.train.schedule import cosine_onecycle
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD),
+                      TRAIN={"EVAL_MAX_BATCHES": 1,
+                             "CLIP_MODEL_CHECKPOINT": ""})
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        t0 = time.perf_counter()
+        trainer = DamsmTrainer(cfg, tmp, "cuda", torch.bfloat16, seed=0)
+        setup = time.perf_counter() - t0
+        clip, opt = trainer.state.clip, trainer.state.opt
+        steps = 2 * len(trainer.train_batches)  # 2 epochs
+        total = len(trainer.train_batches) * cfg.TRAIN.MAX_EPOCH
+        want = {"backbone": cosine_onecycle(total, cfg.TRAIN.BACKBONE_LR,
+                                            0.02, 25.0, 1e4),
+                "linear": cosine_onecycle(total, cfg.TRAIN.LINEAR_LR, 0.1,
+                                          1e3, 1e6)}
+        lrs = []
+        step_fn = trainer.step_fn
+
+        def recording_step(batch):
+            count = opt.count
+            out = step_fn(batch)
+            lrs.append((count, {g["name"]: g["lr"]
+                                for g in opt.adam.param_groups}))
+            return out
+
+        trainer.step_fn = recording_step
+
+        def snap():
+            return {"backbone": clip.vision_model.layers[0].fc1.weight,
+                    "linear": clip.linear_subr.weight,
+                    "logit_scale": clip.logit_scale}
+
+        first = {k: t.detach().clone() for k, t in snap().items()}
+        for name in list(LAUNCHES):
+            LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        metrics = trainer.train(max_epochs=2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        moved = {k: (t.detach() - first[k]).abs().max().item()
+                 for k, t in snap().items()}
+        print(f"damsm path: pretrain_damsm trainer, damsm/bird.yml full "
+              f"width, batch {cfg.TRAIN.BATCH_SIZE}, bf16, {opt.count} steps "
+              f"over 2 epochs with validation and checkpoints in "
+              f"{seconds:.2f} s (set-up {setup:.2f} s); kernel launches "
+              f"{launched}; last metrics "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+              + "; max change " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in moved.items()))
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError("non-finite DAMSM metrics")
+        if launched:
+            raise AssertionError("the DAMSM path launched a kernel of the "
+                                 "GAN path")
+        if not (moved["backbone"] > 0 and moved["linear"] > 0) or \
+                moved["logit_scale"] != 0:
+            raise AssertionError("an optimizer group did not move, or "
+                                 "logit_scale did")
+        bad = [(c, lr) for c, lr in lrs
+               if lr != {k: f(c) for k, f in want.items()}]
+        print(f"damsm path: lr per step (count: backbone, linear) "
+              + ", ".join(f"{c}: {lr['backbone']:.4e}, {lr['linear']:.4e}"
+                          for c, lr in lrs)
+              + f"; against the one-cycle schedules over {total} steps "
+              f"{'ok' if not bad and len(lrs) == steps else 'FAIL'}")
+        if bad or len(lrs) != steps:
+            raise AssertionError(f"lr off its schedule: {bad}")
+
+        paths = [trainer.checkpoint_path(e) for e in (0, 1)]
+        if not all(os.path.isfile(p) for p in paths):
+            raise AssertionError(f"missing checkpoints {paths}")
+        fresh = load_clip_pth(build_clip(), paths[1]).to("cuda")
+        batch = next(iter(trainer.val_batches))
+        clip.eval()
+        with torch.no_grad():
+            outs = []
+            for m in (clip, fresh):
+                outs.append(m.encode_image_verbose(torch.as_tensor(
+                    batch["images"], device="cuda"))
+                    + m.encode_text_verbose(
+                        torch.as_tensor(batch["ids"], device="cuda"),
+                        torch.as_tensor(batch["mask"], device="cuda")))
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        gan_cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
+                              TRAIN={"CLIP_MODEL_CHECKPOINT": paths[1]})
+        gan = CondGanTrainer(gan_cfg, "cuda", torch.bfloat16, seed=0)
+        held = all(torch.equal(a, b) for a, b in
+                   zip(clip.state_dict().values(),
+                       gan.clip.state_dict().values()))
+        size = os.path.getsize(paths[1]) / 2 ** 20
+        print(f"damsm path: clip0.pth, clip1.pth ({size:.1f} MiB); clip1.pth "
+              f"in a fresh module: encodings bitwise equal {same}; "
+              f"CondGanTrainer with CLIP_MODEL_CHECKPOINT holds its weights "
+              f"{held}")
+        if not (same and held):
+            raise AssertionError("clip1.pth does not carry the trained CLIP")
+        del trainer, fresh, gan
+
+
+def check_damsm_step_card_vs_cpu():
+    """Phase 4c: one f32 DAMSM step (TF32 off) on the card against the CPU:
+    the same weights (seed 0) and batch, batch 4, full width.  The loss
+    metrics and every gradient (before the clip) are compared, a gradient
+    against its tensor's largest magnitude; then the CPU's gradients go
+    into both the card's and the CPU's optimizer, and the updated
+    parameters are compared at 1e-6 of each tensor's largest magnitude."""
+    import tempfile
+
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import DAMSM_BIRD
+    from t2igan_torch.train.pretrain_damsm import DamsmTrainer
+    from t2igan_torch.train.steps import make_damsm_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD),
+                      TRAIN={"BATCH_SIZE": 4, "CLIP_MODEL_CHECKPOINT": ""})
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        for side, device in (("cpu", "cpu"), ("card", "cuda")):
+            t0 = time.perf_counter()
+            trainer = DamsmTrainer(cfg, tmp, device, torch.float32, seed=0)
+            clip = trainer.state.clip
+            batch = next(iter(trainer.train_batches))
+            total, metrics = make_damsm_loss(cfg, clip)(batch)
+            params = dict(clip.named_parameters())
+            grads = torch.autograd.grad(total, list(params.values()),
+                                        allow_unused=True)
+            grads = {n: (torch.zeros_like(p) if g is None else g).cpu()
+                     for (n, p), g in zip(params.items(), grads)}
+            runs[side] = (trainer, {k: v.item()
+                                    for k, v in metrics.items()}, grads)
+            print(f"damsm step f32 batch 4 on {device}: "
+                  f"{time.perf_counter() - t0:.1f} s with set-up")
+    (t_cpu, m_cpu, g_cpu), (t_card, m_card, g_card) = (runs["cpu"],
+                                                        runs["card"])
+    # Bound 1e-3: f32 with TF32 off, but cuBLAS and the CPU sum in other
+    # orders through 24 transformer layers, forward and backward, and the
+    # DAMSM scores are sharpened by GAMMA3 = 10 (and gamma2 = 5 in the
+    # word terms' log-sum-exp) before their softmaxes.  A gradient is
+    # measured against its tensor's largest entry, since an entry that
+    # cancels to a small sum carries the rounding of its terms; the qkv
+    # biases against their weight's, since the key part's gradient is
+    # zero (softmax ignores a shift shared by all keys) and holds only
+    # rounding noise.
+    def scale(n):
+        if n.endswith("qkv_proj.bias"):
+            n = n[:-len("bias")] + "weight"
+        return max(g_cpu[n].abs().max().item(), 1e-30)
+
+    worst_metric = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k]))
+                       for k in m_cpu)
+    worst = {n: (g_card[n] - g_cpu[n]).abs().max().item() / scale(n)
+             for n in g_cpu}
+    top = sorted(worst, key=worst.get, reverse=True)[:3]
+    ok = worst_metric <= 1e-3 and worst[top[0]] <= 1e-3
+    print(f"damsm step f32 card vs CPU, batch 4: worst metric rel diff "
+          f"{worst_metric:.3e}, worst gradient rel diffs "
+          + ", ".join(f"{worst[k]:.3e} ({k})" for k in top)
+          + f" bound=1e-3 {'ok' if ok else 'FAIL'}")
+    print("  metrics card / CPU: " + ", ".join(
+        f"{k} {m_card[k]:.6f}/{m_cpu[k]:.6f}" for k in sorted(m_cpu)))
+    if not ok:
+        raise AssertionError("f32 DAMSM step on the card disagrees with the "
+                             "CPU")
+    for trainer in (t_cpu, t_card):
+        for n, p in trainer.state.clip.named_parameters():
+            p.grad = g_cpu[n].to(p.device, copy=True)  # the clip is in place
+        trainer.state.opt.step()
+    p_cpu = dict(t_cpu.state.clip.named_parameters())
+    gap = {n: (p.detach().cpu() - p_cpu[n].detach()).abs().max().item()
+           / max(p_cpu[n].abs().max().item(), 1e-30)
+           for n, p in t_card.state.clip.named_parameters()}
+    top = max(gap, key=gap.get)
+    print(f"damsm optimizer card vs CPU on the same gradients: worst "
+          f"parameter rel diff {gap[top]:.3e} ({top}) bound=1e-6 "
+          f"{'ok' if gap[top] <= 1e-6 else 'FAIL'}")
+    if gap[top] > 1e-6:
+        raise AssertionError("the DAMSM optimizer on the card disagrees "
+                             "with the CPU")
+
+
+def time_damsm_step(card):
+    """Phase 5f: the DAMSM step at batch 48 (damsm/bird.yml: ViT-B/32,
+    224 px, 30 tokens) in bf16 and f32 on the JAX bench's DAMSM inputs,
+    CUDA events over 10 steps after 3 warm-ups."""
+    import torch
+
+    from t2igan_torch.profile_step import damsm_call
+
+    b = 48
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        step = damsm_call(b, dtype)
+        last = {}
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: last.update(step()), iters=10)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = all(math.isfinite(v.item()) for v in last.values())
+        print(f"[{card}] damsm step {name} batch {b}: {ms:.3f} ms/step, "
+              f"{b * 1000.0 / ms:.1f} images/s, peak memory {peak:.2f} GiB; "
+              f"metrics finite {finite}")
+        if not finite:
+            raise AssertionError("DAMSM step metrics not finite")
+        del step
 
 
 def time_train_step(card):
@@ -1295,8 +1546,11 @@ def main() -> int:
     drive_geneval()
     drive_train_path(results)
     check_train_step_card_vs_cpu()
+    drive_damsm_path()
+    check_damsm_step_card_vs_cpu()
     time_sampler(card)
     step_ms = time_train_step(card)
+    time_damsm_step(card)
     time_memory_read(card, results)
     time_memory_read_bwd(card, results, step_ms)
     time_reschain(card, results)

@@ -1,10 +1,11 @@
 """Run configs of the port.
 
-``eval_clip_bird.yml`` (evaluation) and ``clip_bird_dmgan.yml`` (GAN
-training) are the JAX package's configs, copied.  :data:`EVAL_CLIP_BIRD`
-and :data:`CLIP_BIRD_DMGAN` hold the same values as dicts, for scripts that
-run where ``yaml`` may be missing (``chip_smoke.py``); a test keeps each
-dict equal to its file.
+``eval_clip_bird.yml`` (evaluation), ``clip_bird_dmgan.yml`` (GAN
+training) and ``damsm/bird.yml``, ``damsm/coco.yml`` (DAMSM CLIP
+fine-tuning) are the JAX package's configs, copied.  :data:`EVAL_CLIP_BIRD`,
+:data:`CLIP_BIRD_DMGAN` and :data:`DAMSM_BIRD` hold the same values as
+dicts, for scripts that run where ``yaml`` may be missing
+(``chip_smoke.py``); a test keeps each dict equal to its file.
 """
 
 EVAL_CLIP_BIRD = {
@@ -34,4 +35,16 @@ CLIP_BIRD_DMGAN = {
               "DISCRIMINATOR_LR": 0.0002, "GENERATOR_LR": 0.0002,
               "SMOOTH": {"GAMMA1": 4.0, "GAMMA2": 5.0, "GAMMA3": 10.0,
                          "LAMBDA": 10.0}},
+}
+
+DAMSM_BIRD = {
+    "CONFIG_NAME": "DAMSM_CLIP", "DATASET_NAME": "birds",
+    "DATA_DIR": "data/birds", "GPU_ID": 0, "WORKERS": 1,
+    "TREE": {"BRANCH_NUM": 1, "BASE_SIZE": 224},
+    "TEXT": {"EMBEDDING_DIM": 512, "CAPTIONS_PER_IMAGE": 10},
+    "TRAIN": {"FLAG": True, "NET_E": "", "BATCH_SIZE": 48, "MAX_EPOCH": 100,
+              "SNAPSHOT_INTERVAL": 1, "BACKBONE_LR": 0.00002,
+              "LINEAR_LR": 20.0, "BASE_LR": 0.00000001, "GAMMA": 0.9,
+              "STEP_SIZE_UP": 5, "RNN_GRAD_CLIP": 0.25,
+              "SMOOTH": {"GAMMA1": 4.0, "GAMMA2": 5.0, "GAMMA3": 10.0}},
 }

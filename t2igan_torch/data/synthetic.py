@@ -84,3 +84,18 @@ def bench_train_batches(batch: int, eos_token_id: int, n_fix: int = 8,
             "ids": ids, "mask": mask, "ids_2": ids2, "mask_2": mask2,
             "class_ids": np.arange(batch, dtype=np.int32)})
     return batches
+
+
+def bench_damsm_batch(batch: int, eos_token_id: int, size: int = 224,
+                      words: int = 30, seed: int = 0):
+    """The JAX bench's DAMSM inputs (``bench.py:631-689``): both caption
+    views ``words`` <eos> tokens with a full mask, standard-normal images
+    at ``size`` px, class ids ``0..batch-1``."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((batch, words), eos_token_id, np.int32)
+    mask = np.ones((batch, words), np.int32)
+    return {"images": rng.standard_normal((batch, size, size, 3)).astype(
+                np.float32),
+            "ids": ids, "mask": mask, "ids_2": ids.copy(),
+            "mask_2": mask.copy(),
+            "class_ids": np.arange(batch, dtype=np.int32)}

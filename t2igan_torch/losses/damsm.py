@@ -1,5 +1,6 @@
 """DAMSM losses (port of :mod:`t2igan.losses.damsm`): sentence-image and
-word-region matching, and the conditioning-augmentation KL.  Everything is
+word-region matching, the conditioning-augmentation KL, and the removal of
+<sos>/<eos> from CLIP word states for the DAMSM step.  Everything is
 computed in f32.  As in the JAX package, padded words are left out of the
 per-patch softmax but their region-context terms still enter R(Q, D)'s
 log-sum-exp."""
@@ -82,3 +83,21 @@ def kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """``-0.5 * mean(1 + logvar - mu^2 - exp(logvar))``."""
     mu, logvar = mu.float(), logvar.float()
     return -0.5 * torch.mean(1.0 + logvar - mu * mu - torch.exp(logvar))
+
+
+def strip_special_tokens(words: torch.Tensor, mask: torch.Tensor):
+    """Drop the <sos> and <eos> slots from CLIP word states, as one static
+    gather: words [B, L, D] and mask [B, L] (1 = real token, <sos> and
+    <eos> included) -> (words [B, L-2, D], mask [B, L-2] bool).
+
+    The <eos> slot is ``clip(n_real - 1, 1, L - 1)``; output j takes input
+    j+1 before it and j+2 after it, so a caption [sos, w1..wk, eos, pad...]
+    becomes [w1..wk, pad...] with k mask ones, and one that fills the
+    window loses its first and last slots."""
+    b, l, d = words.shape
+    mask = mask.to(torch.int64)
+    eos = torch.clamp(mask.sum(dim=-1) - 1, 1, l - 1)
+    j = torch.arange(l - 2, device=words.device)[None, :]
+    idx = torch.where(j + 1 < eos[:, None], j + 1, j + 2)
+    out = torch.gather(words, 1, idx[:, :, None].expand(b, l - 2, d))
+    return out, torch.gather(mask, 1, idx).bool()

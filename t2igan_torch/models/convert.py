@@ -23,12 +23,22 @@ is a config mismatch, such as another branch count.
 
 The tests compare the port's state after a step with the JAX package's by
 loading the JAX result into a second port module with these loaders and
-comparing the two ``state_dict``s; there is no port -> JAX direction.
+comparing the two ``state_dict``s.
+
+CLIP also crosses under the reference's own names, the ``clip%d.pth``
+files that DAMSM fine-tuning writes and GAN training reads
+(:func:`clip_reference_state_dict`, :func:`load_reference_clip_state`,
+:func:`save_clip_pth`, :func:`load_clip_pth`): HF ``CLIPModel`` keys plus
+``linear_subr.*`` and ``logit_scale``, the keys that the JAX package's
+``convert_torch_clip_state`` reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+import math
+import os
+import re
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -357,3 +367,134 @@ def load_jax_inception(module: InceptionV3,
                     _basic_conv(ld, m, (name, branch))
     ld.check_all_used()
     return module
+
+
+# ---------------------------------------------------------------------------
+# CLIP under the reference's (HF CLIPModel) names
+# ---------------------------------------------------------------------------
+
+# Port parameter name -> reference key, first match wins.  ``qkv_proj`` is
+# split into q/k/v and the patch kernel changes layout (_to_reference).
+_CLIP_RENAMES = (
+    (r"^(text|vision)_model\.layers\.(\d+)\.(fc\d)\.",
+     r"\1_model.encoder.layers.\2.mlp.\3."),
+    (r"^(text|vision)_model\.layers\.", r"\1_model.encoder.layers."),
+    (r"^text_model\.token_embedding\.weight$",
+     "text_model.embeddings.token_embedding.weight"),
+    (r"^(text|vision)_model\.position_embedding$",
+     r"\1_model.embeddings.position_embedding.weight"),
+    (r"^vision_model\.patch_embedding\.kernel$",
+     "vision_model.embeddings.patch_embedding.weight"),
+    (r"^vision_model\.class_embedding$",
+     "vision_model.embeddings.class_embedding"),
+)
+_QKV = ("q_proj", "k_proj", "v_proj")
+_CLIP_PREFIXES = ("module.", "backbone.")
+
+
+def _reference_keys(name: str) -> List[str]:
+    for pattern, repl in _CLIP_RENAMES:
+        if re.search(pattern, name):
+            name = re.sub(pattern, repl, name)
+            break
+    if ".qkv_proj." in name:
+        return [name.replace("qkv_proj", q) for q in _QKV]
+    return [name]
+
+
+def _to_reference(name: str, t: torch.Tensor) -> List[torch.Tensor]:
+    if ".qkv_proj." in name:
+        return list(t.chunk(3, dim=0))      # q, k, v stacked on the rows
+    if name == "vision_model.patch_embedding.kernel":
+        return [t.permute(3, 2, 0, 1)]      # [p, p, C, D] -> OIHW
+    return [t]
+
+
+def _from_reference(name: str, ts: List[torch.Tensor]) -> torch.Tensor:
+    if ".qkv_proj." in name:
+        return torch.cat(ts, dim=0)
+    if name == "vision_model.patch_embedding.kernel":
+        return ts[0].permute(2, 3, 1, 0)    # OIHW -> [p, p, C, D]
+    return ts[0]
+
+
+def clip_reference_state_dict(module: ClipWithRegionHead
+                              ) -> Dict[str, torch.Tensor]:
+    """The weights of ``module`` as f32 CPU tensors under the reference's
+    names: HF ``CLIPModel`` keys (``embeddings.*``, ``encoder.layers.*``
+    with separate ``q_proj``/``k_proj``/``v_proj`` and ``mlp.fc1``/
+    ``mlp.fc2``, an OIHW ``patch_embedding.weight``, ``pre_layrnorm``),
+    ``linear_subr.*`` and ``logit_scale``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in module.named_parameters():
+        for key, t in zip(_reference_keys(name),
+                          _to_reference(name, p.detach())):
+            out[key] = t.to(device="cpu", dtype=torch.float32,
+                            memory_format=torch.contiguous_format, copy=True)
+    return out
+
+
+@torch.no_grad()
+def load_reference_clip_state(module: ClipWithRegionHead,
+                              state_dict: Mapping[str, Any]
+                              ) -> ClipWithRegionHead:
+    """Fill ``module`` from a state dict under the reference's names (the
+    inverse of :func:`clip_reference_state_dict`).  Keys may carry the
+    ``module.`` and ``backbone.`` prefixes of the reference's DataParallel
+    and ``AddLinearOnCLIP`` checkpoints.  A bare ``CLIPModel`` dict gets
+    the JAX converter's fresh head: a ``linear_subr`` kernel drawn from
+    ``numpy.random.default_rng(0)``, normal over sqrt(hidden), zero bias;
+    and ``logit_scale`` log(1 / 0.07) when absent.  A missing or
+    mis-shaped key raises, and so does a key that no parameter takes
+    (HF's ``position_ids`` buffers aside)."""
+    sd = {}
+    for key, v in state_dict.items():
+        while key.startswith(_CLIP_PREFIXES):
+            key = key.split(".", 1)[1]
+        sd[key] = (v.detach().to("cpu", torch.float32)
+                   if isinstance(v, torch.Tensor)
+                   else torch.as_tensor(np.asarray(v, dtype=np.float32)))
+    if "linear_subr.weight" not in sd:
+        hidden, region = (module.linear_subr.in_features,
+                          module.linear_subr.out_features)
+        kernel = (np.random.default_rng(0).standard_normal((hidden, region))
+                  / np.sqrt(hidden)).astype(np.float32)
+        sd["linear_subr.weight"] = torch.from_numpy(kernel.T.copy())
+        sd["linear_subr.bias"] = torch.zeros(region)
+    sd.setdefault("logit_scale", torch.tensor(math.log(1.0 / 0.07)))
+    used = set()
+    for name, p in module.named_parameters():
+        keys = _reference_keys(name)
+        missing = [k for k in keys if k not in sd]
+        if missing:
+            raise KeyError(f"CLIP state dict has no {missing[0]!r} (for the "
+                           f"port's {name})")
+        t = _from_reference(name, [sd[k] for k in keys])
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"CLIP state dict gives {name} the shape "
+                             f"{tuple(t.shape)}, the port expects "
+                             f"{tuple(p.shape)}")
+        p.copy_(t)
+        used.update(keys)
+    unused = [k for k in sd if k not in used
+              and not k.endswith("position_ids")]
+    if unused:
+        raise ValueError("CLIP state dict entries that no parameter of the "
+                         "port takes (config mismatch?): "
+                         + ", ".join(unused[:8]))
+    return module
+
+
+def save_clip_pth(module: ClipWithRegionHead, path: str) -> None:
+    """``torch.save`` of :func:`clip_reference_state_dict` (a reference
+    ``clip%d.pth``)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(clip_reference_state_dict(module), path)
+
+
+def load_clip_pth(module: ClipWithRegionHead,
+                  path: str) -> ClipWithRegionHead:
+    """Fill ``module`` from a ``clip%d.pth`` (the port's or the
+    reference's), read with ``torch.load(weights_only=True)``."""
+    return load_reference_clip_state(
+        module, torch.load(path, map_location="cpu", weights_only=True))

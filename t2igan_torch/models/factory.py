@@ -3,10 +3,14 @@
 
 from __future__ import annotations
 
+import os
 from typing import List
 
+import torch
+
 from t2igan_torch.config import Config
-from t2igan_torch.models.clip import ClipConfig, ClipWithRegionHead
+from t2igan_torch.models.clip import ClipConfig, ClipWithRegionHead, init_clip_
+from t2igan_torch.models.convert import load_clip_pth
 from t2igan_torch.models.discriminator import DNetWithHeads
 from t2igan_torch.models.generator import GNet
 
@@ -51,3 +55,24 @@ def build_clip(clip_cfg: ClipConfig = ClipConfig()) -> ClipWithRegionHead:
     eval mode, f32 on the CPU, weights uninitialised (``init_clip_`` or
     ``load_jax_clip`` fills them)."""
     return ClipWithRegionHead(clip_cfg).eval()
+
+
+def load_clip(cfg: Config, clip_cfg: ClipConfig = ClipConfig(),
+              generator: torch.Generator = None) -> ClipWithRegionHead:
+    """CLIP for training (``t2igan.train.pretrain_damsm.build_clip``): the
+    weights of ``TRAIN.CLIP_MODEL_CHECKPOINT`` when it names an existing
+    ``.pth``/``.pt`` file (a ``clip%d.pth``, :func:`load_clip_pth`), else
+    random weights drawn from ``generator`` (``init_clip_``), with a
+    warning when a checkpoint was named.  Loading draws nothing from
+    ``generator``.  In eval mode, f32 on the CPU."""
+    clip = build_clip(clip_cfg)
+    ckpt = cfg.TRAIN.CLIP_MODEL_CHECKPOINT
+    if ckpt and os.path.isfile(ckpt) and ckpt.endswith((".pth", ".pt")):
+        load_clip_pth(clip, ckpt)
+        print(f"Loaded CLIP weights from torch checkpoint: {ckpt}")
+        return clip
+    init_clip_(clip, generator)
+    if ckpt:
+        print(f"WARNING: CLIP checkpoint {ckpt!r} not found; "
+              "starting from random initialization.")
+    return clip

@@ -1,6 +1,6 @@
 """Where a step's time goes on the card, by kernel family.
 
-    python -m t2igan_torch.profile_step [--path sampler|geneval|train] \
+    python -m t2igan_torch.profile_step [--path sampler|geneval|train|damsm] \
         [--fused-tail] [--batch N] [--dtype bf16|f32] [--iters 3] \
         [--trace PATH]
 
@@ -12,7 +12,11 @@ sampler into the FID Inception-v3 (``pool3``), the JAX bench's
 so each stage tail runs the fused tail kernel (K3); ``--path train``
 (default batch 16) runs the
 adversarial step at the widths of ``configs/clip_bird_dmgan.yml`` on the
-JAX bench's train fixtures (lr 2e-5).  Weights come from a seed.  After a
+JAX bench's train fixtures (lr 2e-5); ``--path damsm`` (default batch 48)
+runs the DAMSM step at the widths of ``configs/damsm/bird.yml`` (ViT-B/32,
+224 px, 30 tokens) on the JAX bench's DAMSM inputs (ids all <eos>, full
+mask, class ids ``0..B-1``) with the optimizer scheduled over 100 steps an
+epoch.  Weights come from a seed.  After a
 warm-up it records ``--iters`` calls under ``torch.profiler``, reads the
 CUDA kernels from the exported Chrome trace, and prints per call: the
 device busy time, the device idle share of the window, the time by kernel
@@ -31,12 +35,15 @@ import tempfile
 import torch
 
 from t2igan_torch.config import cfg_from_dict, cfg_replace
-from t2igan_torch.configs import CLIP_BIRD_DMGAN, EVAL_CLIP_BIRD
-from t2igan_torch.data.synthetic import bench_train_batches
+from t2igan_torch.configs import CLIP_BIRD_DMGAN, DAMSM_BIRD, EVAL_CLIP_BIRD
+from t2igan_torch.data.synthetic import bench_damsm_batch, bench_train_batches
 from t2igan_torch.evaluation.fid import make_gen_activation_fn
 from t2igan_torch.generate import DTYPES, build_models
+from t2igan_torch.models.clip import init_clip_
+from t2igan_torch.models.factory import build_clip
 from t2igan_torch.models.inception import InceptionV3, init_inception_
-from t2igan_torch.train.steps import make_sampler
+from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
+from t2igan_torch.train.steps import make_damsm_step, make_sampler
 from t2igan_torch.train.train_gan import CondGanTrainer
 
 # Kernel families by a substring of the kernel name, first match wins.
@@ -55,8 +62,9 @@ FAMILIES = (
                      "reschain_convili3e")),
     ("nearest upsample", ("upsample",)),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
+    ("layer norm", ("layer_norm",)),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
-    ("matmul (CLIP, dense)", ("gemm", "cutlass", "cublas")),
+    ("matmul (CLIP, dense)", ("gemm", "cutlass", "cublas", "nvjet")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("softmax", ("softmax",)),
     ("reduction", ("reduce",)),
@@ -116,14 +124,27 @@ def train_call(batch: int, dtype: torch.dtype):
                                    generator=trainer.noise)
 
 
+def damsm_call(batch: int, dtype: torch.dtype):
+    cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD),
+                      TRAIN={"BATCH_SIZE": batch})
+    clip = init_clip_(build_clip(), torch.Generator().manual_seed(0))
+    state = init_damsm_state(cfg, clip.to("cuda"),
+                             damsm_optimizer(cfg, steps_per_epoch=100))
+    step = make_damsm_step(cfg, state.clip, state.opt, dtype)
+    inputs = {k: torch.as_tensor(v, device="cuda") for k, v in
+              bench_damsm_batch(batch, clip.cfg.eos_token_id).items()}
+    return lambda: step(inputs)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--path", choices=["sampler", "geneval", "train"],
+    p.add_argument("--path", choices=["sampler", "geneval", "train", "damsm"],
                    default="sampler")
     p.add_argument("--fused-tail", action="store_true",
                    help="GAN.FUSED_TAIL for the sampler and geneval paths")
     p.add_argument("--batch", type=int, default=None,
-                   help="default 128 (sampler, geneval) or 16 (train)")
+                   help="default 128 (sampler, geneval), 16 (train) or 48 "
+                        "(damsm)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--trace", default="", help="keep the Chrome trace here")
@@ -133,12 +154,14 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    if args.fused_tail and args.path == "train":
-        raise SystemExit("--fused-tail is eval only: the train step runs "
+    if args.fused_tail and args.path in ("train", "damsm"):
+        raise SystemExit("--fused-tail is eval only: the train steps run "
                          "the module chain")
-    b = args.batch or (16 if args.path == "train" else 128)
+    b = args.batch or {"train": 16, "damsm": 48}.get(args.path, 128)
     if args.path == "train":
         call = train_call(b, DTYPES[args.dtype])
+    elif args.path == "damsm":
+        call = damsm_call(b, DTYPES[args.dtype])
     else:
         call = sampler_call(b, DTYPES[args.dtype], args.fused_tail,
                             geneval=args.path == "geneval")

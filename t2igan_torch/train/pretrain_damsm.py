@@ -1,0 +1,203 @@
+"""DAMSM CLIP fine-tuning: the port's counterpart of
+``t2igan.train.pretrain_damsm.DamsmTrainer`` and of the root
+``pretrain_DAMSM.py``.
+
+    python -m t2igan_torch.pretrain_damsm --cfg t2igan_torch/configs/damsm/bird.yml \
+        [--max_epochs N] [--batch B] [--output_dir D] [--dtype bf16|f32] \
+        [--device cuda|cpu] [--seed S]
+
+It builds CLIP (``TRAIN.CLIP_MODEL_CHECKPOINT`` when that names an existing
+``.pth``, else random weights from ``--seed``) and the two-group
+optimizer, takes one DAMSM step
+(:func:`t2igan_torch.train.steps.make_damsm_step`) per batch with one
+printed line each, validates at the end of every epoch, and writes
+``<output_dir>/Model/clip%d.pth`` (the reference's names, which the JAX
+package's ``load_torch_clip`` and the port's GAN trainer read) every
+``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last.  Captions are 30
+tokens a view.  The default device is ``cuda``; without a card this raises
+rather than falling back to the CPU.
+
+Not here yet: the real datasets (without ``DATA_DIR/<split>`` on disk both
+splits are the synthetic dataset, as in the JAX package), the attention
+figure, and resuming the optimizer state.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from t2igan_torch.config import Config, cfg_from_file, cfg_replace
+from t2igan_torch.data.synthetic import SyntheticDataset
+from t2igan_torch.data.tokenizer import ClipTokenizer
+from t2igan_torch.models.clip import ClipConfig
+from t2igan_torch.models.convert import save_clip_pth
+from t2igan_torch.models.factory import load_clip
+from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
+from t2igan_torch.train.steps import make_damsm_loss, make_damsm_step
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# The reference tokenises DAMSM captions to 30 tokens
+# (pretrain_DAMSM.py:103).
+DAMSM_WORDS_NUM = 30
+
+
+def make_dataset(cfg: Config, split: str) -> SyntheticDataset:
+    """The synthetic dataset of ``max(2 * TRAIN.BATCH_SIZE, 64)`` records
+    when ``DATA_DIR/<split>`` is not on disk; the port has no reader for
+    the real datasets yet, so it raises when one is."""
+    split_dir = os.path.join(cfg.DATA_DIR, split)
+    if cfg.DATA_DIR and os.path.isdir(split_dir):
+        raise NotImplementedError(
+            f"{split_dir!r} exists, but the port has no reader for the real "
+            f"datasets yet (ROADMAP.md, Queue 1)")
+    print(f"WARNING: dataset split {split_dir!r} not found; "
+          "using synthetic data.")
+    return SyntheticDataset(cfg, size=max(2 * cfg.TRAIN.BATCH_SIZE, 64))
+
+
+class CaptionBatches:
+    """Shuffled, drop-last batches of the finest image and both caption
+    views tokenised to ``words_num``; epoch e is ordered by
+    ``numpy.random.default_rng((seed, e))``, as the JAX package's loader."""
+
+    def __init__(self, dataset: SyntheticDataset, tokenizer: ClipTokenizer,
+                 batch_size: int, words_num: int, seed: int = 0):
+        self.dataset = dataset
+        self.tokenizer = tokenizer
+        self.batch_size = batch_size
+        self.words_num = words_num
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = np.arange(len(self.dataset))
+        np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
+        self.epoch += 1
+        b = self.batch_size
+        for start in range(0, len(self) * b, b):
+            recs = [self.dataset[int(i)] for i in idx[start:start + b]]
+            tok1 = self.tokenizer([r.caption for r in recs], self.words_num)
+            tok2 = self.tokenizer([r.caption_2 for r in recs],
+                                  self.words_num)
+            yield {"images": np.stack([r.images[-1] for r in recs]),
+                   "ids": tok1["input_ids"], "mask": tok1["attention_mask"],
+                   "ids_2": tok2["input_ids"],
+                   "mask_2": tok2["attention_mask"],
+                   "class_ids": np.asarray([r.class_id for r in recs],
+                                           np.int32)}
+
+
+class DamsmTrainer:
+    """CLIP, its optimizer and the data of DAMSM fine-tuning.
+
+    ``dtype`` is the precision of the towers (parameters and optimizer
+    state stay f32); ``clip_cfg`` the CLIP widths (ViT-B/32 by default)."""
+
+    def __init__(self, cfg: Config, output_dir: str, device: str = "cuda",
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 clip_cfg: ClipConfig = ClipConfig(),
+                 words_num: int = DAMSM_WORDS_NUM):
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: t2igan_torch.pretrain_damsm "
+                               "runs on the card by default; pass --device "
+                               "cpu to run on the CPU")
+        self.cfg = cfg
+        self.output_dir = output_dir
+        os.makedirs(output_dir, exist_ok=True)
+        tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
+        b = cfg.TRAIN.BATCH_SIZE
+        self.train_batches = CaptionBatches(make_dataset(cfg, "train"),
+                                            tokenizer, b, words_num)
+        self.val_batches = CaptionBatches(make_dataset(cfg, "val"),
+                                          tokenizer, b, words_num)
+        rng = torch.Generator().manual_seed(seed)
+        clip = load_clip(cfg, clip_cfg, rng).to(dev)
+        self.tx = damsm_optimizer(cfg, steps_per_epoch=len(self.train_batches))
+        self.state = init_damsm_state(cfg, clip, self.tx)
+        self.step_fn = make_damsm_step(cfg, clip, self.state.opt, dtype)
+        self.eval_loss_fn = make_damsm_loss(cfg, clip, dtype)
+
+    def checkpoint_path(self, epoch: int) -> str:
+        return os.path.join(self.output_dir, "Model", f"clip{epoch}.pth")
+
+    def train(self, max_epochs: Optional[int] = None) -> Dict[str, float]:
+        """``max_epochs`` epochs (default ``TRAIN.MAX_EPOCH``) of one step
+        per batch, each followed by :meth:`evaluate` and, every
+        ``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last, a
+        ``clip%d.pth``.  Returns the last step's metrics."""
+        cfg = self.cfg
+        epochs = max_epochs if max_epochs is not None else cfg.TRAIN.MAX_EPOCH
+        metrics: Dict[str, float] = {}
+        for epoch in range(epochs):
+            start = time.perf_counter()
+            for i, batch in enumerate(self.train_batches):
+                t0 = time.perf_counter()
+                out = self.step_fn(batch)
+                metrics = {k: float(v) for k, v in out.items()}
+                print(f"| epoch {epoch:3d} | {i + 1:4d}/"
+                      f"{len(self.train_batches):4d} batches | step "
+                      f"{self.state.step} | "
+                      + " ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+                      + f" | {time.perf_counter() - t0:.2f}s", flush=True)
+            val = self.evaluate()
+            print(f"| end epoch {epoch:3d} | valid s_loss {val['s_loss']:5.2f}"
+                  f" w_loss {val['w_loss']:5.2f} |"
+                  f" {time.perf_counter() - start:.1f}s", flush=True)
+            if epoch % cfg.TRAIN.SNAPSHOT_INTERVAL == 0 or \
+                    epoch == epochs - 1:
+                save_clip_pth(self.state.clip, self.checkpoint_path(epoch))
+        return metrics
+
+    def evaluate(self, max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Mean ``s_loss`` and ``w_loss`` over the validation split, capped
+        at ``max_batches`` (default ``TRAIN.EVAL_MAX_BATCHES``, 0 = no
+        cap)."""
+        if max_batches is None:
+            max_batches = self.cfg.TRAIN.EVAL_MAX_BATCHES or None
+        s_total, w_total, n = 0.0, 0.0, 0
+        with torch.no_grad():
+            for i, batch in enumerate(self.val_batches):
+                if max_batches is not None and i >= max_batches:
+                    break
+                _, m = self.eval_loss_fn(batch)
+                s_total += float(m["s_loss"])
+                w_total += float(m["w_loss"])
+                n += 1
+        n = max(n, 1)
+        return {"s_loss": s_total / n, "w_loss": w_total / n}
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         clip_cfg: ClipConfig = ClipConfig()) -> DamsmTrainer:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--cfg", required=True, help="YAML config")
+    p.add_argument("--max_epochs", type=int, default=None,
+                   help="epochs to run (default TRAIN.MAX_EPOCH)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="batch size (default TRAIN.BATCH_SIZE)")
+    p.add_argument("--output_dir", default=None,
+                   help="default output/<DATASET_NAME>_<CONFIG_NAME>")
+    p.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    cfg = cfg_from_file(args.cfg)
+    if args.batch:
+        cfg = cfg_replace(cfg, TRAIN={"BATCH_SIZE": args.batch})
+    output_dir = args.output_dir or os.path.join(
+        "output", f"{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}")
+    trainer = DamsmTrainer(cfg, output_dir, args.device,
+                           DTYPES[args.dtype], args.seed, clip_cfg)
+    trainer.train(args.max_epochs)
+    return trainer

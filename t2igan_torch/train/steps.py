@@ -1,24 +1,111 @@
 """Train and inference steps of the port (``t2igan.train.steps``): the
-adversarial GAN step and the sampler."""
+DAMSM CLIP fine-tuning step, the adversarial GAN step and the sampler."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from t2igan_torch.config import Config
 from t2igan_torch.losses import (discriminator_loss, generator_adv_loss,
                                  kl_loss, nt_xent_loss, sent_loss,
-                                 words_loss, wrong_pair)
+                                 strip_special_tokens, words_loss,
+                                 wrong_pair)
 from t2igan_torch.models.clip import ClipWithRegionHead
 from t2igan_torch.models.generator import GNet
 from t2igan_torch.ops.attention import l2_normalize
 from t2igan_torch.ops.image import resize_nearest
-from t2igan_torch.train.state import GanTrainState, ema_update
+from t2igan_torch.train.state import (DamsmOptimizer, GanTrainState,
+                                      ema_update)
 
 
 EMA_DECAY = 0.999  # the G EMA's mixing rate
+
+
+def make_damsm_loss(cfg: Config, clip: ClipWithRegionHead,
+                    dtype: torch.dtype = torch.float32
+                    ) -> Callable[..., Tuple[torch.Tensor, Dict]]:
+    """The DAMSM loss, as ``t2igan.train.steps.make_damsm_loss``:
+    ``loss_fn(batch) -> (total, metrics)`` on ``clip``'s current weights.
+
+    ``batch`` holds ``images`` [B, S, S, 3] (CLIP-normalised, S the
+    tower's image size), ``ids``/``mask`` and ``ids_2``/``mask_2`` (the two
+    caption views, mask 1 at real tokens) and ``class_ids``, as arrays or
+    tensors.  The image tower runs once: the image code is l2-normalised
+    (eps on the norm) and the regions are ``linear_subr`` of the patch
+    states (CLS dropped).  Both caption views go through the text tower in
+    one [2B] apply; the sentence vectors are l2-normalised, and <sos>/<eos>
+    are stripped from each view's word states.  The total is 4
+    ``words_loss`` terms (both directions, both views) + 4 ``sent_loss``
+    terms + ``nt_xent_loss(sent1, sent2, 0.5)``; the metrics are
+    ``loss``, ``w_loss``, ``s_loss`` and ``contrastive``.
+
+    ``dtype=torch.bfloat16`` runs the towers under ``torch.autocast``; the
+    losses are f32."""
+    g1 = cfg.TRAIN.SMOOTH.GAMMA1
+    g2 = cfg.TRAIN.SMOOTH.GAMMA2
+    g3 = cfg.TRAIN.SMOOTH.GAMMA3
+
+    def loss_fn(batch) -> Tuple[torch.Tensor, Dict]:
+        device = clip.logit_scale.device
+
+        def put(x):
+            return torch.as_tensor(x, device=device)
+
+        ids, mask = put(batch["ids"]), put(batch["mask"])
+        ids2, mask2 = put(batch["ids_2"]), put(batch["mask_2"])
+        cls = put(batch["class_ids"])
+        with torch.autocast(device.type, dtype=torch.bfloat16,
+                            enabled=dtype == torch.bfloat16):
+            subr, img_code = clip.encode_image_verbose(
+                put(batch["images"]).float())
+            words12, sent12 = clip.encode_text_verbose(
+                torch.cat([ids, ids2]), torch.cat([mask, mask2]))
+        img_code = l2_normalize(img_code.float())
+        regions = subr[:, 1:].float()
+        words1, words2 = words12.float().chunk(2)
+        sent1, sent2 = l2_normalize(sent12.float()).chunk(2)
+        w1, m1 = strip_special_tokens(words1, mask)
+        w2, m2 = strip_special_tokens(words2, mask2)
+
+        wl0, wl1 = words_loss(regions, w1, cls, m1, g1, g2, g3)
+        wl0b, wl1b = words_loss(regions, w2, cls, m2, g1, g2, g3)
+        sl0, sl1 = sent_loss(img_code, sent1, cls, g3)
+        sl0b, sl1b = sent_loss(img_code, sent2, cls, g3)
+        contrast = nt_xent_loss(sent1, sent2, temperature=0.5)
+        w_loss = wl0 + wl1 + wl0b + wl1b
+        s_loss = sl0 + sl1 + sl0b + sl1b
+        total = w_loss + s_loss + contrast
+        return total, {"loss": total, "w_loss": w_loss, "s_loss": s_loss,
+                       "contrastive": contrast}
+
+    return loss_fn
+
+
+def make_damsm_step(cfg: Config, clip: ClipWithRegionHead,
+                    opt: DamsmOptimizer,
+                    dtype: torch.dtype = torch.float32
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The DAMSM step, as ``t2igan.train.steps.make_damsm_step``: the
+    returned ``step(batch)`` takes the gradients of
+    :func:`make_damsm_loss`'s total with respect to every parameter of
+    ``clip`` and applies ``opt`` (global-norm clip, two-group Adam), both
+    in place.  It returns the loss metrics and ``grad_norm`` (the global
+    norm before the clip) as detached 0-dim tensors."""
+    loss_fn = make_damsm_loss(cfg, clip, dtype)
+    params = list(clip.parameters())
+
+    def step(batch) -> Dict[str, torch.Tensor]:
+        total, metrics = loss_fn(batch)
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = opt.step()
+        return metrics
+
+    return step
 
 
 def make_gan_step(cfg: Config, clip: ClipWithRegionHead,

@@ -1,10 +1,12 @@
 """Conditional GAN trainer: the port's counterpart of
-``t2igan.train.train_gan.CondGanTrainer``, without checkpoints.
+``t2igan.train.train_gan.CondGanTrainer``, without G/D checkpoints.
 
     python -m t2igan_torch.train_gan --cfg t2igan_torch/configs/clip_bird_dmgan.yml \
         --steps N [--batch B] [--dtype bf16|f32] [--device cuda|cpu] [--seed S]
 
-It builds CLIP, the generator and one discriminator per pyramid size with
+It builds CLIP (from ``TRAIN.CLIP_MODEL_CHECKPOINT`` when that names an
+existing ``clip%d.pth``, as ``python -m t2igan_torch.pretrain_damsm``
+writes them), the generator and one discriminator per pyramid size with
 random weights from ``--seed``, tokenizes the synthetic dataset's captions
 (``TEXT.WORDS_NUM`` tokens), takes ``--steps`` adversarial steps
 (:func:`t2igan_torch.train.steps.make_gan_step`) and prints one
@@ -25,10 +27,10 @@ import torch
 from t2igan_torch.config import Config, cfg_from_file, cfg_replace
 from t2igan_torch.data.synthetic import SyntheticDataset
 from t2igan_torch.data.tokenizer import ClipTokenizer
-from t2igan_torch.models.clip import ClipConfig, init_clip_
+from t2igan_torch.models.clip import ClipConfig
 from t2igan_torch.models.discriminator import init_discriminator_
-from t2igan_torch.models.factory import (build_clip, build_discriminators,
-                                         build_generator)
+from t2igan_torch.models.factory import (build_discriminators,
+                                         build_generator, load_clip)
 from t2igan_torch.models.generator import init_generator_
 from t2igan_torch.train.state import init_gan_state
 from t2igan_torch.train.steps import make_gan_step
@@ -54,8 +56,8 @@ class CondGanTrainer:
         self.tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
         self.dataset = SyntheticDataset(cfg, seed=seed)
         rng = torch.Generator().manual_seed(seed)
-        self.clip = init_clip_(build_clip(clip_cfg), rng).requires_grad_(
-            False).to(dev)
+        self.clip = load_clip(cfg, clip_cfg, rng).requires_grad_(False).to(
+            dev)
         gen = init_generator_(build_generator(cfg), rng).train()
         ds = [init_discriminator_(d, rng).train()
               for d in build_discriminators(cfg)]

@@ -87,6 +87,23 @@ def test_train_config_dict_is_the_packaged_yaml():
         tconfig.cfg_from_file(str(path))
 
 
+@pytest.mark.parametrize("name", ["bird.yml", "coco.yml"])
+def test_packaged_damsm_configs_are_the_jax_ones(name):
+    src = REPO / "t2igan" / "configs" / "damsm" / name
+    assert (PORT / "configs" / "damsm" / name).read_text() == src.read_text()
+
+
+def test_damsm_config_dict_is_the_packaged_yaml():
+    import yaml
+
+    from t2igan_torch.configs import DAMSM_BIRD
+
+    path = PORT / "configs" / "damsm" / "bird.yml"
+    assert DAMSM_BIRD == yaml.safe_load(path.read_text())
+    assert tconfig.cfg_from_dict(DAMSM_BIRD) == \
+        tconfig.cfg_from_file(str(path))
+
+
 def _assert_same_tokens(ours, ref, captions):
     a, b = ours(captions, max_length=77), ref(captions, max_length=77)
     np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
@@ -156,6 +173,13 @@ def test_import_guard_covers_every_module_of_the_eval_slice():
             "evaluation/__init__.py", "evaluation/fid.py"} <= sources
     assert "reschain" in build.SOURCES
     assert (build.CSRC_DIR / "reschain.cu").is_file()
+
+
+def test_import_guard_covers_every_module_of_the_damsm_slice():
+    """The modules the DAMSM slice added."""
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"train/schedule.py", "train/pretrain_damsm.py",
+            "pretrain_damsm.py"} <= sources
 
 
 def test_importing_the_port_loads_no_jax_or_t2igan():
