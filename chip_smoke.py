@@ -53,6 +53,19 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    exactly those weights through ``TRAIN.CLIP_MODEL_CHECKPOINT``;
 4c. holds one f32 DAMSM step on the card to the CPU at batch 4 (metrics
    and every gradient), then both optimizers fed the same gradients;
+6. (run before phase 5's timings) drives the train -> checkpoint ->
+   evaluate loop: ``CondGanTrainer.train`` at the full width of
+   ``configs/clip_bird_dmgan.yml``, 2 epochs in bf16 at batch 4 with a
+   snapshot after each (full state, ``netG_epoch_%d.pth``,
+   ``netD%d.pth``, the sample sheet; 4 K1, 4 K2, 0 K3 launches a step), a
+   fresh trainer resuming bitwise, ``netG_epoch_1.pth`` in a fresh GNet
+   giving the bitwise f32 sampler output, ``sampling()`` from it at the
+   widths of ``eval_clip_bird.yml`` (batch 10, one round, both tails: 2
+   K1 and 2 or 0 K3 launches per sampler call, one PNG per kept record,
+   R in [0, 1]), the f32 rank function on the card against the CPU at the
+   sweep's batch of 10 with 99 mis-captions, the
+   fused tail's operand cache after a weight load, and the sweep's
+   sampler and rank function timed at batch 10 and 128;
 5. times the sampler and gen+eval at batch 128 in both tail settings,
    the train step at batch 16 and the DAMSM step at batch 48 (the JAX
    bench's shapes) in bf16 (the DAMSM step in f32 too), and each
@@ -824,7 +837,7 @@ def drive_train_path(results):
     for _ in range(3):
         before = {k: t.detach().clone() for k, t in snap().items()}
         counts = dict(LAUNCHES)
-        metrics = trainer.train(1)
+        metrics = trainer.train_steps(1)
         torch.cuda.synchronize()
         per_step.append({k: LAUNCHES[k] - counts.get(k, 0)
                          for k in LAUNCHES})
@@ -1072,6 +1085,290 @@ def drive_damsm_path():
         if not (same and held):
             raise AssertionError("clip1.pth does not carry the trained CLIP")
         del trainer, fresh, gan
+
+
+def _module_tensors(trainer):
+    """Every tensor of a GAN trainer's state by name: G, the EMA G and each
+    discriminator (parameters, running statistics, spectral vectors), and
+    both optimizers' moments."""
+    state = trainer.state
+    out = {}
+    for name, mod in [("G", state.gen), ("EMA", state.gen_ema)] + [
+            (f"D{i}", d) for i, d in enumerate(state.ds)]:
+        out.update({f"{name}.{k}": v for k, v in mod.state_dict().items()})
+    for name, opt in [("g_opt", state.g_opt)] + [
+            (f"d_opt{i}", o) for i, o in enumerate(state.d_opts)]:
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{name}.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def drive_checkpoint_loop(card):
+    """Phase 6: train -> checkpoint -> evaluate.  The CondGanTrainer at the
+    full width of clip_bird_dmgan.yml trains 2 epochs in bf16 at batch 4
+    on the synthetic split with a snapshot after each (full state,
+    netG_epoch_%d.pth, netD%d.pth, G_%d.png), with 4 K1, 4 K2 and 0 K3
+    launches a step; a fresh trainer resumes bitwise; netG_epoch_1.pth in
+    a fresh GNet gives the bitwise f32 sampler output; then the sweep
+    (sampling(), eval_clip_bird.yml widths, the YAML's batch of 10, one
+    round, both tail settings) from that file, the f32 rank function on
+    the card against the CPU at the sweep's batch of 10 with 99
+    mis-captions, the fused tail's operand cache after a
+    weight load, and the sweep's sampler and rank function timed at
+    batch 10 and 128."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import CLIP_BIRD_DMGAN, EVAL_CLIP_BIRD
+    from t2igan_torch.evaluation.rprecision import make_rank_fn
+    from t2igan_torch.generate import build_models
+    from t2igan_torch.models.convert import load_generator_pth
+    from t2igan_torch.models.factory import build_clip, build_generator
+    from t2igan_torch.models.clip import init_clip_
+    from t2igan_torch.ops.image import resize_nearest
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.steps import make_sampler
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    def reset():
+        for name in list(LAUNCHES):
+            LAUNCHES[name] = 0
+
+    cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
+                      TRAIN={"MAX_EPOCH": 2, "SNAPSHOT_INTERVAL": 1})
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        t0 = time.perf_counter()
+        trainer = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0,
+                                 output_dir=out)
+        setup = time.perf_counter() - t0
+        per_step = []
+        step_fn = trainer.step_fn
+
+        def counted(*args, **kwargs):
+            before = dict(LAUNCHES)
+            metrics = step_fn(*args, **kwargs)
+            per_step.append({k: LAUNCHES[k] - before.get(k, 0)
+                             for k in LAUNCHES})
+            return metrics
+
+        trainer.step_fn = counted
+        reset()
+        t0 = time.perf_counter()
+        metrics = trainer.train(2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total = dict(LAUNCHES)
+        steps = trainer.state.step
+        files = {d: sorted(os.listdir(os.path.join(out, d)))
+                 for d in ("Model", "Image")}
+        print(f"checkpoint loop: CondGanTrainer.train(2), clip_bird_dmgan.yml "
+              f"full width, batch {cfg.TRAIN.BATCH_SIZE}, bf16, "
+              f"{len(trainer.dataset)} synthetic records, {steps} steps and "
+              f"2 snapshots in {seconds:.2f} s (set-up {setup:.2f} s); "
+              f"launches {total}; files {files}; last metrics "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+        want_files = {"Model": ["netD0.pth", "netD1.pth", "netD2.pth",
+                                "netG_epoch_0.pth", "netG_epoch_1.pth",
+                                f"state_{steps // 2:08d}.pt",
+                                f"state_{steps:08d}.pt"],
+                      "Image": ["G_0.png", "G_1.png"]}
+        if files != want_files:
+            raise AssertionError(f"snapshot files {files}, expected "
+                                 f"{want_files}")
+        if len(per_step) != steps or any(
+                c.get("memory_read_fwd") != 4 or c.get("memory_read_bwd") != 4
+                or c.get("reschain", 0) != 0 for c in per_step):
+            raise AssertionError("expected 4 memory_read_fwd, 4 "
+                                 "memory_read_bwd and 0 reschain launches "
+                                 f"per train step, got {per_step}")
+        # Each sample sheet is one sampler call: 2 K1 launches.
+        if total.get("memory_read_fwd") != 4 * steps + 2 * 2 or \
+                total.get("memory_read_bwd") != 4 * steps:
+            raise AssertionError(f"launches over the run {total}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError("non-finite train metrics")
+
+        # Resume: a fresh trainer restores the newest full state.
+        t0 = time.perf_counter()
+        resumed = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0,
+                                 output_dir=out)
+        a, b = _module_tensors(trainer), _module_tensors(resumed)
+        same = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+        same = same and (resumed.epoch, resumed.state.step) == (2, steps) \
+            and torch.equal(resumed.noise.get_state(),
+                            trainer.noise.get_state()) \
+            and resumed.order.bit_generator.state == \
+            trainer.order.bit_generator.state
+        print(f"checkpoint loop: a fresh trainer resumed from "
+              f"state_{steps:08d}.pt in {time.perf_counter() - t0:.2f} s: "
+              f"{len(a)} tensors (parameters, statistics, spectral vectors, "
+              f"Adam moments), step, epoch and both generators' states "
+              f"bitwise equal {same}")
+        if not same:
+            raise AssertionError("resumed state differs from the saved run")
+        del resumed
+
+        # Reload: netG_epoch_1.pth in a fresh GNet, f32 sampler bitwise.
+        net_g = os.path.join(out, "Model", "netG_epoch_1.pth")
+        fresh = load_generator_pth(build_generator(cfg), net_g).to(
+            "cuda", memory_format=torch.channels_last)
+        batch = trainer.collate(range(4), with_images=False)
+        g = torch.Generator().manual_seed(11)
+        z = torch.randn((4, cfg.GAN.Z_DIM), generator=g)
+        eps = torch.randn((4, cfg.GAN.CONDITION_DIM), generator=g)
+        outs = [make_sampler(cfg, trainer.clip, gen)(batch["ids"],
+                                                     batch["mask"], z, eps)
+                for gen in (trainer.state.gen_ema, fresh)]
+        same = all(torch.equal(x, y) for x, y in zip(*outs))
+        print(f"checkpoint loop: netG_epoch_1.pth in a fresh GNet, f32 "
+              f"sampler at batch 4 bitwise equal to the EMA G's {same}")
+        if not same:
+            raise AssertionError("netG_epoch_1.pth does not carry the EMA G")
+        del trainer, fresh, outs
+
+        sweep_cfg = cfg_replace(cfg_from_dict(EVAL_CLIP_BIRD),
+                                TRAIN={"NET_G": net_g})
+        b = sweep_cfg.TRAIN.BATCH_SIZE
+        for fused in (False, True):
+            label = "fused tail" if fused else "plain tail"
+            t0 = time.perf_counter()
+            ev = CondGanTrainer(cfg_replace(sweep_cfg,
+                                            GAN={"FUSED_TAIL": fused}),
+                                "cuda", torch.bfloat16, seed=100,
+                                output_dir=os.path.join(out, "eval"),
+                                split="test")
+            setup = time.perf_counter() - t0
+            calls = len(ev.dataset) // b
+            reset()
+            t0 = time.perf_counter()
+            mean, std = ev.sampling("valid", num_rounds=1)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            single = os.path.join(out, "eval", "valid", "single")
+            pngs = sum(len(f) for _, _, f in os.walk(single))
+            want = {"memory_read_fwd": 2 * calls,
+                    "reschain": 2 * calls if fused else 0}
+            ok = (all(counts.get(k, 0) == v for k, v in want.items())
+                  and counts.get("memory_read_bwd", 0) == 0
+                  and pngs == calls * b and 0.0 <= mean <= 1.0)
+            print(f"checkpoint loop: sampling() {label}, eval_clip_bird.yml "
+                  f"widths from netG_epoch_1.pth, batch {b}, bf16, 1 round "
+                  f"of {calls} batches in {seconds:.2f} s (set-up "
+                  f"{setup:.2f} s): R mean {mean:.4f} std {std:.4f}, "
+                  f"{pngs} PNGs, launches {counts} (want {want}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("sweep launch counts, PNGs or R wrong")
+
+            # The sweep's two parts at batch 10 and 128, CUDA events.
+            clip, gen = ev.eval_models()
+            sampler, rank = make_sampler(sweep_cfg, clip, gen), \
+                make_rank_fn(clip)
+            bank = ev.mis_caption_bank(ev.sweep_words(clip))
+            for bt in (b, TIMED_BATCH):
+                tb = ev.collate(np.arange(bt) % len(ev.dataset),
+                                with_images=False)
+                g = torch.Generator().manual_seed(12)
+                z = torch.randn((bt, sweep_cfg.GAN.Z_DIM), generator=g)
+                eps = torch.randn((bt, sweep_cfg.GAN.CONDITION_DIM),
+                                  generator=g)
+                mis = [torch.as_tensor(x, device="cuda")
+                       for x in bank.sample(tb["class_ids"], 99)]
+                ids, mask = (torch.as_tensor(tb[k], device="cuda")
+                             for k in ("ids", "mask"))
+                z, eps = z.cuda(), eps.cuda()
+                images = resize_nearest(sampler(ids, mask, z, eps)[-1],
+                                        clip.cfg.image_size).contiguous()
+                iters = 10 if bt == b else 3
+                s_ms = cuda_ms(lambda: sampler(ids, mask, z, eps), iters)
+                torch.cuda.reset_peak_memory_stats()
+                r_ms = cuda_ms(lambda: rank(images, ids, mask, *mis), iters)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                print(f"[{card}] sweep {label} bf16 batch {bt}: sampler "
+                      f"{s_ms:.3f} ms + rank fn (1 + 99 captions an image, "
+                      f"{bt * 100} text rows in one text batch, peak "
+                      f"memory {peak:.2f} GiB) {r_ms:.3f} ms = "
+                      f"{s_ms + r_ms:.3f} ms/batch")
+            del ev, clip, gen, sampler, rank
+
+    # The f32 rank function on the card against the CPU at the sweep's
+    # shape: a batch of 10, 99 mis-captions each, 77 tokens a caption
+    # (random CLIP from seed 13, TF32 off).  An image's mis-captions are
+    # the other captions of CAPTIONS, as the sweep draws other-class ones.
+    # Hits must agree wherever the CPU's true-caption score is further
+    # from the best mis-caption's than twice the measured difference
+    # (there the scores fix the hit), and be the card's argmax == 0
+    # everywhere.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clip_cpu = init_clip_(build_clip(), torch.Generator().manual_seed(13))
+    clip_card = init_clip_(build_clip(), torch.Generator().manual_seed(13)
+                           ).to("cuda")
+    from t2igan_torch.data.tokenizer import ClipTokenizer
+
+    tok = ClipTokenizer.load()
+    rng = np.random.default_rng(13)
+    size, words = clip_cpu.cfg.image_size, min(77,
+                                                clip_cpu.cfg.max_positions)
+    rb, n_mis = cfg_from_dict(EVAL_CLIP_BIRD).TRAIN.BATCH_SIZE, 99
+    images = np.tanh(rng.standard_normal((rb, size, size, 3))).astype(
+        np.float32)
+    true = tok([CAPTIONS[i % len(CAPTIONS)] for i in range(rb)],
+               max_length=words)
+    others = (np.arange(rb)[:, None] + rng.integers(
+        1, len(CAPTIONS), (rb, n_mis))) % len(CAPTIONS)
+    mis = tok([CAPTIONS[i] for i in others.reshape(-1)], max_length=words)
+    args = (images, true["input_ids"], true["attention_mask"],
+            mis["input_ids"].reshape(rb, n_mis, -1),
+            mis["attention_mask"].reshape(rb, n_mis, -1))
+    t0 = time.perf_counter()
+    h_cpu, s_cpu = make_rank_fn(clip_cpu)(*args)
+    cpu_s = time.perf_counter() - t0
+    h_card, s_card = make_rank_fn(clip_card)(*args)
+    gap = (s_card.cpu() - s_cpu).abs().max().item()
+    clear = (s_cpu[:, 0] - s_cpu[:, 1:].amax(dim=1)).abs() > 2 * gap
+    hits_ok = torch.equal(h_card.cpu()[clear], h_cpu[clear]) and \
+        torch.equal(h_card, s_card.argmax(dim=1) == 0)
+    ok = gap <= 1e-4 and hits_ok and s_card.shape == (rb, 1 + n_mis)
+    print(f"rank fn f32 card vs CPU, batch {rb} x (1 + {n_mis}) captions of "
+          f"{words} tokens (CPU {cpu_s:.2f} s): scores "
+          f"max_abs_diff={gap:.3e} bound=1e-4, hits equal on "
+          f"{int(clear.sum())}/{rb} clear rows {hits_ok} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("rank fn on the card disagrees with the CPU")
+    del clip_cpu, clip_card
+
+    # The fused tail's operand cache: a G that has sampled, then takes new
+    # weights through load_state_dict, samples as a freshly built G.
+    ev_cfg = fused_cfg(True)
+    tok4 = tok(CAPTIONS[:4], max_length=ev_cfg.TEXT.WORDS_NUM)
+    g = torch.Generator().manual_seed(14)
+    z = torch.randn((4, ev_cfg.GAN.Z_DIM), generator=g)
+    eps = torch.randn((4, ev_cfg.GAN.CONDITION_DIM), generator=g)
+    clip, old = build_models(ev_cfg, 0, torch.device("cuda"), torch.bfloat16)
+    _, newer = build_models(ev_cfg, 1, torch.device("cuda"), torch.bfloat16)
+    _, fresh = build_models(ev_cfg, 1, torch.device("cuda"), torch.bfloat16)
+    before = make_sampler(ev_cfg, clip, old)(tok4["input_ids"],
+                                             tok4["attention_mask"], z, eps)
+    old.load_state_dict(newer.state_dict())
+    reset()
+    after = make_sampler(ev_cfg, clip, old)(tok4["input_ids"],
+                                            tok4["attention_mask"], z, eps)
+    want = make_sampler(ev_cfg, clip, fresh)(tok4["input_ids"],
+                                             tok4["attention_mask"], z, eps)
+    same = all(torch.equal(x, y) for x, y in zip(after, want))
+    moved = (before[-1].float() - after[-1].float()).abs().max().item()
+    print(f"fused-tail operand cache: a G that sampled, then loaded new "
+          f"weights, samples bitwise as a fresh G {same} (its output moved "
+          f"by {moved:.3e}; launches {dict(LAUNCHES)})")
+    if not same or moved == 0 or LAUNCHES["reschain"] != 4:
+        raise AssertionError("the fused tail sampled with stale operands")
 
 
 def check_damsm_step_card_vs_cpu():
@@ -1548,6 +1845,7 @@ def main() -> int:
     check_train_step_card_vs_cpu()
     drive_damsm_path()
     check_damsm_step_card_vs_cpu()
+    drive_checkpoint_loop(card)
     time_sampler(card)
     step_ms = time_train_step(card)
     time_damsm_step(card)

@@ -1,8 +1,9 @@
 """Synthetic dataset, deterministic per (seed, index): the records of
 ``t2igan.data.synthetic`` (the same images, captions and class ids for a
 seed) with the port's own :class:`Record`.  It stands in for CUB/COCO
-wherever no data is on disk, as in the JAX package.  Its mis-caption
-helpers for R-precision come with the evaluation slice."""
+wherever no data is on disk, as in the JAX package, with the same
+mis-caption draws for R-precision (:meth:`SyntheticDataset.mis_captions`,
+:meth:`SyntheticDataset.caption_bank`)."""
 
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ class SyntheticDataset:
         self.n_classes = n_classes
         self.seed = seed
         self.class_id = np.arange(size) % n_classes
+        self.rng = np.random.default_rng(seed)
 
     def __len__(self):
         return self.n
@@ -57,6 +59,25 @@ class SyntheticDataset:
                       caption_2=self._caption(rng),
                       class_id=int(self.class_id[index]),
                       key=f"synthetic/{index:06d}")
+
+    def mis_captions(self, cls_id: int, n: int = 99) -> List[str]:
+        """``n`` captions of other classes, drawn from the dataset's own
+        generator (so each call continues the last one's stream)."""
+        out = []
+        while len(out) < n:
+            idx = int(self.rng.integers(0, self.n))
+            if self.class_id[idx] == cls_id:
+                continue
+            rng = np.random.default_rng((self.seed, idx, 1))
+            out.append(self._caption(rng))
+        return out
+
+    def caption_bank(self):
+        """One caption per sample with its class id (the draw of
+        :meth:`mis_captions`), for the tokenized mis-caption pool."""
+        caps = [self._caption(np.random.default_rng((self.seed, i, 1)))
+                for i in range(self.n)]
+        return caps, self.class_id.astype(np.int64)
 
 
 def bench_train_batches(batch: int, eos_token_id: int, n_fix: int = 8,

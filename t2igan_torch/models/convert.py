@@ -30,7 +30,15 @@ files that DAMSM fine-tuning writes and GAN training reads
 (:func:`clip_reference_state_dict`, :func:`load_reference_clip_state`,
 :func:`save_clip_pth`, :func:`load_clip_pth`): HF ``CLIPModel`` keys plus
 ``linear_subr.*`` and ``logit_scale``, the keys that the JAX package's
-``convert_torch_clip_state`` reads.
+``convert_torch_clip_state`` reads.  So do the generator and the
+discriminators, as ``netG_epoch_%d.pth`` and ``netD%d.pth``
+(:func:`generator_reference_state_dict`,
+:func:`discriminator_reference_state_dict`, their loaders and the
+``save_*_pth``/``load_*_pth`` pairs), under the names that the JAX
+package's ``convert_torch_generator_state`` and
+``convert_torch_discriminator_state`` read; and the generator goes back
+to a JAX variable tree (:func:`jax_generator_variables`) for the ``.npz``
+export.
 """
 
 from __future__ import annotations
@@ -498,3 +506,300 @@ def load_clip_pth(module: ClipWithRegionHead,
     reference's), read with ``torch.load(weights_only=True)``."""
     return load_reference_clip_state(
         module, torch.load(path, map_location="cpu", weights_only=True))
+
+
+# ---------------------------------------------------------------------------
+# The generator as a JAX variable tree (port -> JAX, for the .npz export)
+# ---------------------------------------------------------------------------
+
+class _Writer:
+    """The inverse of :class:`_Loader`: the same module walk, writing each
+    tensor under its JAX path as an f32 numpy array."""
+
+    def __init__(self):
+        self.tree: Dict[str, Any] = {}
+
+    def put(self, path: Path, t: torch.Tensor) -> None:
+        node = self.tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t.detach().to("cpu", torch.float32).numpy().copy()
+
+    def dense(self, lin: nn.Linear, path: Path) -> None:
+        self.put(path + ("kernel",), lin.weight.T)
+        if lin.bias is not None:
+            self.put(path + ("bias",), lin.bias)
+
+    def conv(self, conv: nn.Conv2d, path: Path) -> None:
+        self.put(path + ("kernel",), conv.weight.permute(2, 3, 1, 0))
+        if conv.bias is not None:
+            self.put(path + ("bias",), conv.bias)
+
+    def batch_norm(self, bn: BatchNorm, path: Path) -> None:
+        p = ("params",) + path + ("BatchNorm_0",)
+        s = ("batch_stats",) + path + ("BatchNorm_0",)
+        self.put(p + ("scale",), bn.weight)
+        self.put(p + ("bias",), bn.bias)
+        self.put(s + ("mean",), bn.running_mean)
+        self.put(s + ("var",), bn.running_var)
+
+
+@torch.no_grad()
+def jax_generator_variables(module: GNet, stats_from: GNet = None
+                            ) -> Dict[str, Any]:
+    """``{"params": ..., "batch_stats": ...}`` of ``module`` as nested dicts
+    of f32 numpy arrays under the JAX ``GNet``'s names: the inverse of
+    :func:`load_jax_generator`.  The batch statistics come from
+    ``stats_from`` (default ``module``): the EMA generator is saved with
+    the trained G's running statistics, as the JAX package does."""
+    params = _Writer()
+    _gnet(params, module, ())
+    stats = _Writer()
+    _gnet(stats, stats_from if stats_from is not None else module, ())
+    return {"params": params.tree["params"],
+            "batch_stats": stats.tree["batch_stats"]}
+
+
+# ---------------------------------------------------------------------------
+# The generator and the discriminators under the reference's torch names
+# ---------------------------------------------------------------------------
+
+def _stage(m) -> int:
+    return int(m.group(1)) + 2
+
+
+# Port name -> reference key, first match wins (the reference's G_NET and
+# D_NET64/128/256; the name table of the JAX package's converters).
+_BLOCK = {"conv1": 0, "bn1": 1, "conv2": 3, "bn2": 4}
+_GENERATOR_RENAMES = (
+    (r"^init_stage\.fc\.", lambda m: "h_net1.fc.0."),
+    (r"^init_stage\.bn\.", lambda m: "h_net1.fc.1."),
+    (r"^init_stage\.upsample\.(\d+)\.(conv|bn)\.",
+     lambda m: f"h_net1.upsample{int(m.group(1)) + 1}."
+               f"{1 if m.group(2) == 'conv' else 2}."),
+    (r"^next_stages\.(\d+)\.(M_w|M_r|key|value)\.",
+     lambda m: f"h_net{_stage(m)}.{m.group(2)}.0."),
+    (r"^next_stages\.(\d+)\.response_gate\.",
+     lambda m: f"h_net{_stage(m)}.response_gate.0."),
+    (r"^next_stages\.(\d+)\.residual\.(\d+)\.(conv1|bn1|conv2|bn2)\.",
+     lambda m: f"h_net{_stage(m)}.residual.{m.group(2)}.block."
+               f"{_BLOCK[m.group(3)]}."),
+    (r"^next_stages\.(\d+)\.upsample\.(conv|bn)\.",
+     lambda m: f"h_net{_stage(m)}.upsample."
+               f"{1 if m.group(2) == 'conv' else 2}."),
+    (r"^next_stages\.(\d+)\.(A|B)\.", lambda m: f"h_net{_stage(m)}."
+                                                f"{m.group(2)}."),
+    (r"^image_heads\.(\d+)\.conv\.",
+     lambda m: f"img_net{int(m.group(1)) + 1}.img.0."),
+    (r"^ca_net\.fc\.", lambda m: "ca_net.fc."),
+)
+# The memory projections are k=1 Conv1d in the reference: (out, in, 1).
+_CONV1D = re.compile(r"^next_stages\.\d+\.(M_w|M_r|key|value)\.weight$")
+
+_SN_BUFFERS = {"weight": "weight_bar", "bias": "bias", "u": "weight_u",
+               "v": "weight_v"}
+
+
+def _discriminator_sources(module: DNetWithHeads) -> Dict[str, str]:
+    """Port SN conv / head conv prefix -> the reference's module path."""
+    down = ("img_code_s32", "img_code_s64")
+    blocks = (("img_code_s32_1",) if module.img_size == 128
+              else ("img_code_s64_1", "img_code_s64_2"))
+    src = {f"trunk.encode.blocks.{i}.conv": f"img_code_s16.{2 * i}.module"
+           for i in range(len(module.trunk.encode.blocks))}
+    src.update({f"trunk.down.{i}.conv": f"{down[i]}.0.module"
+                for i in range(len(module.trunk.down))})
+    src.update({f"trunk.blocks.{i}.conv": f"{blocks[i]}.0.module"
+                for i in range(len(module.trunk.blocks))})
+    src["cond_head.joint.conv"] = "COND_DNET.jointConv.0.module"
+    src["cond_head.conv"] = "COND_DNET.outlogits.0"
+    src["uncond_head.conv"] = "UNCOND_DNET.outlogits.0"
+    return src
+
+
+def _reference_key(name: str, module: nn.Module) -> str:
+    if isinstance(module, DNetWithHeads):
+        prefix, leaf = name.rsplit(".", 1)
+        src = _discriminator_sources(module)[prefix]
+        return f"{src}.{_SN_BUFFERS[leaf] if src.endswith('module') else leaf}"
+    for pattern, repl in _GENERATOR_RENAMES:
+        if re.search(pattern, name):
+            return re.sub(pattern, repl, name)
+    raise KeyError(f"no reference name for the port's {name}")
+
+
+def _sn_v_to_reference(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``v`` flattened in (kh, kw, in) order -> the reference's (in, kh,
+    kw) order."""
+    _, cin, kh, kw = weight.shape
+    return v.reshape(kh, kw, cin).permute(2, 0, 1).reshape(-1)
+
+
+def _sn_v_from_reference(v: torch.Tensor, weight: torch.Tensor
+                         ) -> torch.Tensor:
+    _, cin, kh, kw = weight.shape
+    return v.reshape(cin, kh, kw).permute(1, 2, 0).reshape(-1)
+
+
+def _cpu32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to(device="cpu", dtype=torch.float32,
+                         memory_format=torch.contiguous_format, copy=True)
+
+
+@torch.no_grad()
+def generator_reference_state_dict(module: GNet, stats_from: GNet = None
+                                   ) -> Dict[str, torch.Tensor]:
+    """The weights of ``module`` as f32 CPU tensors under the reference's
+    ``G_NET`` names (``netG_epoch_%d.pth``): ``ca_net.fc``,
+    ``h_net1.fc.{0,1}``, ``h_net1.upsample{1..4}.{1,2}``,
+    ``h_net<b>.{A,B,M_w.0,M_r.0,key.0,value.0,response_gate.0,
+    residual.<i>.block.{0,1,3,4},upsample.{1,2}}`` and ``img_net<b>.img.0``.
+    Linears stay (out, in), the memory projections become k=1 Conv1d
+    weights (out, in, 1), convs OIHW, BNs ``weight/bias/running_mean/
+    running_var/num_batches_tracked`` (the last 0: the port does not count
+    batches).  The running statistics come from ``stats_from`` (default
+    ``module``): the EMA generator is saved with the trained G's."""
+    stats = dict((stats_from if stats_from is not None else module)
+                 .named_buffers())
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in module.state_dict().items():
+        key = _reference_key(name, module)
+        t = stats.get(name, t)
+        if _CONV1D.match(name):
+            t = t[..., None]
+        out[key] = _cpu32(t)
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0)
+    return out
+
+
+@torch.no_grad()
+def discriminator_reference_state_dict(module: DNetWithHeads
+                                       ) -> Dict[str, torch.Tensor]:
+    """The weights and spectral vectors of ``module`` as f32 CPU tensors
+    under the reference's ``D_NET{64,128,256}`` names (``netD%d.pth``):
+    each SN conv as ``<src>.module.{weight_bar,bias,weight_u,weight_v}``
+    (``weight_v`` in the reference's (in, kh, kw) order), the heads'
+    plain convs as ``{COND,UNCOND}_DNET.outlogits.0.{weight,bias}``."""
+    sd = module.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in sd.items():
+        if name.endswith(".v"):
+            t = _sn_v_to_reference(t, sd[name[:-1] + "weight"])
+        out[_reference_key(name, module)] = _cpu32(t)
+    return out
+
+
+def _reference_tensors(state_dict: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """Keys without DataParallel's ``module.`` prefix and without
+    ``num_batches_tracked``, values as f32 CPU tensors."""
+    sd = {}
+    for key, v in state_dict.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        if key.endswith("num_batches_tracked"):
+            continue
+        sd[key] = (v.detach().to("cpu", torch.float32)
+                   if isinstance(v, torch.Tensor)
+                   else torch.as_tensor(np.asarray(v, dtype=np.float32)))
+    return sd
+
+
+@torch.no_grad()
+def _load_reference_state(module: nn.Module, state_dict: Mapping[str, Any],
+                          what: str) -> nn.Module:
+    sd = _reference_tensors(state_dict)
+    own = module.state_dict()
+    used = set()
+    for name, dst in own.items():
+        key = _reference_key(name, module)
+        if key not in sd:
+            raise KeyError(f"{what} state dict has no {key!r} (for the "
+                           f"port's {name})")
+        t = sd[key]
+        if _CONV1D.match(name) and t.dim() == 3 and t.shape[-1] == 1:
+            t = t[..., 0]
+        if name.endswith(".v") and isinstance(module, DNetWithHeads):
+            weight = own[name[:-1] + "weight"]
+            if t.numel() != weight[0].numel():
+                raise ValueError(f"{what} state dict gives {key} "
+                                 f"{t.numel()} entries, the port expects "
+                                 f"{weight[0].numel()}")
+            t = _sn_v_from_reference(t, weight)
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{what} state dict gives {name} ({key}) the "
+                             f"shape {tuple(t.shape)}, the port expects "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t)
+        used.add(key)
+    unused = [k for k in sd if k not in used]
+    if unused:
+        raise ValueError(f"{what} state dict entries that no tensor of the "
+                         f"port takes (config mismatch?): "
+                         + ", ".join(unused[:8]))
+    return module
+
+
+def load_reference_generator_state(module: GNet,
+                                   state_dict: Mapping[str, Any]) -> GNet:
+    """Fill ``module`` in place (``copy_``, so the fused tail's cached
+    operands see the change) from a state dict under the reference's
+    ``G_NET`` names (the inverse of :func:`generator_reference_state_dict`;
+    keys may carry the ``module.`` prefix, ``num_batches_tracked`` is
+    ignored).  A missing or mis-shaped key raises, and so does a key that
+    no tensor takes (another ``R_NUM`` or branch count).  A ``G_DCGAN``
+    dict raises ``NotImplementedError``, as ``build_generator`` does on
+    ``GAN.B_DCGAN``."""
+    if any(k.startswith(("img_net.", "module.img_net."))
+           for k in state_dict):
+        raise NotImplementedError(
+            "a G_DCGAN state dict (GAN.B_DCGAN): the port has not ported "
+            "GDCGan yet (ROADMAP.md, Queue 1)")
+    return _load_reference_state(module, state_dict, "generator")
+
+
+def load_reference_discriminator_state(module: DNetWithHeads,
+                                       state_dict: Mapping[str, Any]
+                                       ) -> DNetWithHeads:
+    """Fill ``module`` from a state dict under the reference's
+    ``D_NET{64,128,256}`` names (the inverse of
+    :func:`discriminator_reference_state_dict`), with the same checks as
+    :func:`load_reference_generator_state`."""
+    return _load_reference_state(module, state_dict, "discriminator")
+
+
+def _save(sd: Dict[str, torch.Tensor], path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(sd, path)
+
+
+def _read(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_generator_pth(module: GNet, path: str,
+                       stats_from: GNet = None) -> None:
+    """``torch.save`` of :func:`generator_reference_state_dict` (a
+    reference ``netG_epoch_%d.pth``)."""
+    _save(generator_reference_state_dict(module, stats_from), path)
+
+
+def load_generator_pth(module: GNet, path: str) -> GNet:
+    """Fill ``module`` from a ``netG_epoch_%d.pth`` (the port's or the
+    reference's)."""
+    return load_reference_generator_state(module, _read(path))
+
+
+def save_discriminator_pth(module: DNetWithHeads, path: str) -> None:
+    """``torch.save`` of :func:`discriminator_reference_state_dict` (a
+    reference ``netD%d.pth``)."""
+    _save(discriminator_reference_state_dict(module), path)
+
+
+def load_discriminator_pth(module: DNetWithHeads,
+                           path: str) -> DNetWithHeads:
+    """Fill ``module`` from a ``netD%d.pth`` (the port's or the
+    reference's)."""
+    return load_reference_discriminator_state(module, _read(path))

@@ -1,6 +1,6 @@
 """Where a step's time goes on the card, by kernel family.
 
-    python -m t2igan_torch.profile_step [--path sampler|geneval|train|damsm] \
+    python -m t2igan_torch.profile_step [--path sampler|geneval|train|damsm|rank] \
         [--fused-tail] [--batch N] [--dtype bf16|f32] [--iters 3] \
         [--trace PATH]
 
@@ -16,7 +16,9 @@ JAX bench's train fixtures (lr 2e-5); ``--path damsm`` (default batch 48)
 runs the DAMSM step at the widths of ``configs/damsm/bird.yml`` (ViT-B/32,
 224 px, 30 tokens) on the JAX bench's DAMSM inputs (ids all <eos>, full
 mask, class ids ``0..B-1``) with the optimizer scheduled over 100 steps an
-epoch.  Weights come from a seed.  After a
+epoch; ``--path rank`` (default batch 128) runs the R-precision sweep's rank
+function (ViT-B/32 on 224 px images, the true and 99 mis-captions of 77
+tokens an image, ids all <eos>, full mask).  Weights come from a seed.  After a
 warm-up it records ``--iters`` calls under ``torch.profiler``, reads the
 CUDA kernels from the exported Chrome trace, and prints per call: the
 device busy time, the device idle share of the window, the time by kernel
@@ -38,6 +40,7 @@ from t2igan_torch.config import cfg_from_dict, cfg_replace
 from t2igan_torch.configs import CLIP_BIRD_DMGAN, DAMSM_BIRD, EVAL_CLIP_BIRD
 from t2igan_torch.data.synthetic import bench_damsm_batch, bench_train_batches
 from t2igan_torch.evaluation.fid import make_gen_activation_fn
+from t2igan_torch.evaluation.rprecision import make_rank_fn
 from t2igan_torch.generate import DTYPES, build_models
 from t2igan_torch.models.clip import init_clip_
 from t2igan_torch.models.factory import build_clip
@@ -108,6 +111,24 @@ def sampler_call(batch: int, dtype: torch.dtype, fused_tail: bool = False,
     return lambda: sample(ids, mask, z, eps)
 
 
+def rank_call(batch: int, dtype: torch.dtype, n_mis: int = 99):
+    """The sweep's rank function at ``batch`` images of 224 px, each
+    against 1 + ``n_mis`` captions of 77 tokens (all <eos>, full mask)."""
+    clip = init_clip_(build_clip(), torch.Generator().manual_seed(0))
+    clip = clip.to("cuda", dtype).eval()
+    rank = make_rank_fn(clip)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    size, w = clip.cfg.image_size, clip.cfg.max_positions
+    images = torch.tanh(torch.randn((batch, size, size, 3), generator=g,
+                                    device="cuda"))
+    ids = torch.full((batch, w), clip.cfg.eos_token_id, dtype=torch.int32,
+                     device="cuda")
+    mask = torch.ones_like(ids)
+    mis_ids = ids[:, None].expand(batch, n_mis, w).contiguous()
+    mis_mask = torch.ones_like(mis_ids)
+    return lambda: rank(images, ids, mask, mis_ids, mis_mask)
+
+
 def train_call(batch: int, dtype: torch.dtype):
     cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
                       TRAIN={"BATCH_SIZE": batch, "DISCRIMINATOR_LR": 2e-5,
@@ -138,13 +159,14 @@ def damsm_call(batch: int, dtype: torch.dtype):
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--path", choices=["sampler", "geneval", "train", "damsm"],
+    p.add_argument("--path", choices=["sampler", "geneval", "train", "damsm",
+                                       "rank"],
                    default="sampler")
     p.add_argument("--fused-tail", action="store_true",
                    help="GAN.FUSED_TAIL for the sampler and geneval paths")
     p.add_argument("--batch", type=int, default=None,
-                   help="default 128 (sampler, geneval), 16 (train) or 48 "
-                        "(damsm)")
+                   help="default 128 (sampler, geneval, rank), 16 (train) "
+                        "or 48 (damsm)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--trace", default="", help="keep the Chrome trace here")
@@ -154,7 +176,7 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    if args.fused_tail and args.path in ("train", "damsm"):
+    if args.fused_tail and args.path in ("train", "damsm", "rank"):
         raise SystemExit("--fused-tail is eval only: the train steps run "
                          "the module chain")
     b = args.batch or {"train": 16, "damsm": 48}.get(args.path, 128)
@@ -162,6 +184,8 @@ def main() -> None:
         call = train_call(b, DTYPES[args.dtype])
     elif args.path == "damsm":
         call = damsm_call(b, DTYPES[args.dtype])
+    elif args.path == "rank":
+        call = rank_call(b, DTYPES[args.dtype])
     else:
         call = sampler_call(b, DTYPES[args.dtype], args.fused_tail,
                             geneval=args.path == "geneval")

@@ -12,14 +12,17 @@ optimizer, takes one DAMSM step
 (:func:`t2igan_torch.train.steps.make_damsm_step`) per batch with one
 printed line each, validates at the end of every epoch, and writes
 ``<output_dir>/Model/clip%d.pth`` (the reference's names, which the JAX
-package's ``load_torch_clip`` and the port's GAN trainer read) every
-``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last.  Captions are 30
-tokens a view.  The default device is ``cuda``; without a card this raises
-rather than falling back to the CPU.
+package's ``load_torch_clip`` and the port's GAN trainer read) and the
+full train state ``<output_dir>/Model/state_<step>.pt`` (CLIP, both Adam
+groups and the update count) every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and
+after the last.  A trainer whose ``<output_dir>/Model`` holds a full state
+resumes from the newest, as the JAX trainer restores its orbax state.
+Captions are 30 tokens a view.  The default device is ``cuda``; without a
+card this raises rather than falling back to the CPU.
 
 Not here yet: the real datasets (without ``DATA_DIR/<split>`` on disk both
-splits are the synthetic dataset, as in the JAX package), the attention
-figure, and resuming the optimizer state.
+splits are the synthetic dataset, as in the JAX package) and the attention
+figure.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from t2igan_torch.data.tokenizer import ClipTokenizer
 from t2igan_torch.models.clip import ClipConfig
 from t2igan_torch.models.convert import save_clip_pth
 from t2igan_torch.models.factory import load_clip
+from t2igan_torch.train.checkpoint import (CheckpointManager, damsm_payload,
+                                           restore_damsm_payload)
 from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
 from t2igan_torch.train.steps import make_damsm_loss, make_damsm_step
 
@@ -127,19 +132,29 @@ class DamsmTrainer:
         self.state = init_damsm_state(cfg, clip, self.tx)
         self.step_fn = make_damsm_step(cfg, clip, self.state.opt, dtype)
         self.eval_loss_fn = make_damsm_loss(cfg, clip, dtype)
+        self.epoch = 0  # epochs done: train() goes on from here
+        self.ckpt = CheckpointManager(os.path.join(output_dir, "Model"))
+        payload, step = self.ckpt.restore()
+        if payload is not None:
+            self.epoch = restore_damsm_payload(self.state, payload)
+            self.train_batches.epoch = payload["train_order"]
+            self.val_batches.epoch = payload["val_order"]
+            print(f"Resumed DAMSM state from step {step} ({self.epoch} "
+                  f"epochs done)")
 
     def checkpoint_path(self, epoch: int) -> str:
         return os.path.join(self.output_dir, "Model", f"clip{epoch}.pth")
 
     def train(self, max_epochs: Optional[int] = None) -> Dict[str, float]:
-        """``max_epochs`` epochs (default ``TRAIN.MAX_EPOCH``) of one step
-        per batch, each followed by :meth:`evaluate` and, every
-        ``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last, a
-        ``clip%d.pth``.  Returns the last step's metrics."""
+        """Epochs ``self.epoch`` .. ``max_epochs - 1`` (default
+        ``TRAIN.MAX_EPOCH``) of one step per batch, each followed by
+        :meth:`evaluate` and, every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and
+        after the last, a ``clip%d.pth`` and the full train state.
+        Returns the last step's metrics."""
         cfg = self.cfg
         epochs = max_epochs if max_epochs is not None else cfg.TRAIN.MAX_EPOCH
         metrics: Dict[str, float] = {}
-        for epoch in range(epochs):
+        for epoch in range(self.epoch, epochs):
             start = time.perf_counter()
             for i, batch in enumerate(self.train_batches):
                 t0 = time.perf_counter()
@@ -154,9 +169,14 @@ class DamsmTrainer:
             print(f"| end epoch {epoch:3d} | valid s_loss {val['s_loss']:5.2f}"
                   f" w_loss {val['w_loss']:5.2f} |"
                   f" {time.perf_counter() - start:.1f}s", flush=True)
+            self.epoch = epoch + 1
             if epoch % cfg.TRAIN.SNAPSHOT_INTERVAL == 0 or \
                     epoch == epochs - 1:
                 save_clip_pth(self.state.clip, self.checkpoint_path(epoch))
+                self.ckpt.save(self.state.step, dict(
+                    damsm_payload(self.state, self.epoch),
+                    train_order=self.train_batches.epoch,
+                    val_order=self.val_batches.epoch))
         return metrics
 
     def evaluate(self, max_batches: Optional[int] = None) -> Dict[str, float]:

@@ -56,10 +56,17 @@ def gan_optimizers(cfg: Config) -> Tuple[OptimizerFactory, OptimizerFactory]:
 @torch.no_grad()
 def ema_update(ema: nn.Module, model: nn.Module,
                decay: float = 0.999) -> None:
-    """``avg = decay * avg + (1 - decay) * p`` over the parameters; buffers
-    (the BN running statistics) are not averaged."""
+    """``avg = decay * avg + (1 - decay) * p`` over the parameters; the
+    buffers (the BN running statistics) are copied from ``model``, not
+    averaged.  The JAX package keeps one set of batch statistics, the
+    trained G's, and samples the EMA parameters with it; so do
+    ``netG_epoch_%d.pth`` and the ``.npz`` export.  Both copies are
+    in place, which moves each tensor's ``_version`` and so refreshes the
+    fused tail's cached operands."""
     for e, p in zip(ema.parameters(), model.parameters()):
         e.copy_(decay * e + (1.0 - decay) * p)
+    for e, b in zip(ema.buffers(), model.buffers()):
+        e.copy_(b)
 
 
 def init_gan_state(cfg: Config, gen: GNet, ds: List[DNetWithHeads],

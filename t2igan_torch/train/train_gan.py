@@ -1,16 +1,35 @@
 """Conditional GAN trainer: the port's counterpart of
-``t2igan.train.train_gan.CondGanTrainer``, without G/D checkpoints.
+``t2igan.train.train_gan.CondGanTrainer`` (train with snapshots, resume,
+the generation + R-precision sweep and caption-driven generation).
 
     python -m t2igan_torch.train_gan --cfg t2igan_torch/configs/clip_bird_dmgan.yml \
         --steps N [--batch B] [--dtype bf16|f32] [--device cuda|cpu] [--seed S]
 
-It builds CLIP (from ``TRAIN.CLIP_MODEL_CHECKPOINT`` when that names an
-existing ``clip%d.pth``, as ``python -m t2igan_torch.pretrain_damsm``
-writes them), the generator and one discriminator per pyramid size with
-random weights from ``--seed``, tokenizes the synthetic dataset's captions
-(``TEXT.WORDS_NUM`` tokens), takes ``--steps`` adversarial steps
-(:func:`t2igan_torch.train.steps.make_gan_step`) and prints one
-``[step] Loss_D: ... Loss_G: ...`` line per step.  CLIP stays frozen.
+takes ``--steps`` adversarial steps and writes nothing;
+``python -m t2igan_torch.main`` is the full entry point (epochs with
+checkpoints, ``B_VALIDATION`` sampling, ``gen_example``).
+
+The trainer builds CLIP (from ``TRAIN.CLIP_MODEL_CHECKPOINT`` when that
+names an existing ``clip%d.pth``), the generator and one discriminator per
+pyramid size with random weights from ``seed``, and the data of ``split``
+(:func:`t2igan_torch.train.pretrain_damsm.make_dataset`: the JAX package's
+records).  CLIP stays frozen.  ``TRAIN.NET_G`` resumes it:
+
+* a ``.npz`` (the JAX package's generator export) or a
+  ``netG_epoch_%d.pth`` sets G and its EMA to the file's weights (as
+  distinct tensors), and with ``TRAIN.B_NET_D`` each sibling
+  ``netD%d.pth`` fills its discriminator; training goes on at the epoch
+  after the one in the file's name;
+* a directory, or an empty ``NET_G`` with an ``output_dir``, restores the
+  newest full train state in it (``Model/state_<step>.pt``,
+  :mod:`t2igan_torch.train.checkpoint`);
+* otherwise the seeded weights stay, and the trainer says so.
+
+Every weight load copies into the existing tensors (``copy_`` or
+``load_state_dict``), never rebinds ``.data``: the fused tail keys its
+laid-out operands on each tensor's ``(data_ptr, _version)``, and a rebound
+tensor could leave it sampling with stale operands.
+
 The default device is ``cuda``; without a card this raises rather than
 falling back to the CPU.
 """
@@ -18,43 +37,73 @@ falling back to the CPU.
 from __future__ import annotations
 
 import argparse
+import copy
+import itertools
+import os
 import time
-from typing import Dict, Iterator, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from t2igan_torch.config import Config, cfg_from_file, cfg_replace
-from t2igan_torch.data.synthetic import SyntheticDataset
 from t2igan_torch.data.tokenizer import ClipTokenizer
+from t2igan_torch.generate import sample_and_write
+from t2igan_torch.evaluation.rprecision import (MisCaptionBank,
+                                                bootstrap_r_precision,
+                                                make_rank_fn)
 from t2igan_torch.models.clip import ClipConfig
+from t2igan_torch.models.convert import (load_discriminator_pth,
+                                         save_discriminator_pth,
+                                         save_generator_pth)
 from t2igan_torch.models.discriminator import init_discriminator_
 from t2igan_torch.models.factory import (build_discriminators,
                                          build_generator, load_clip)
 from t2igan_torch.models.generator import init_generator_
+from t2igan_torch.ops.image import resize_nearest, uint8_from_tanh
+from t2igan_torch.train.checkpoint import (CheckpointManager,
+                                           GracefulShutdown, gan_payload,
+                                           parse_epoch_from_path,
+                                           restore_gan_payload)
+from t2igan_torch.train.export import load_generator_weights
+from t2igan_torch.train.pretrain_damsm import make_dataset
 from t2igan_torch.train.state import init_gan_state
-from t2igan_torch.train.steps import make_gan_step
+from t2igan_torch.train.steps import make_gan_step, make_sampler
+from t2igan_torch.utils.png import write_png
+from t2igan_torch.utils.viz import save_image_grid, tanh_to01
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
+# (z [b, Z_DIM], eps [b, CONDITION_DIM]) for a batch of b.
+NoiseFn = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
+
 
 class CondGanTrainer:
-    """Models, train state and data for ``steps`` adversarial steps.
+    """Models, train state and data of adversarial training and its
+    evaluation.
 
-    ``dtype`` is the precision of the forwards (parameters stay f32);
-    ``clip_cfg`` the CLIP widths (ViT-B/32 by default)."""
+    ``dtype`` is the precision of the forwards (parameters stay f32; the
+    sampler runs on ``dtype`` copies of the EMA G and CLIP); ``clip_cfg``
+    the CLIP widths (ViT-B/32 by default); ``output_dir`` where
+    snapshots, samples and the sweep's images go (``None``: nowhere, and
+    no resume from it)."""
 
     def __init__(self, cfg: Config, device: str = "cuda",
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 clip_cfg: ClipConfig = ClipConfig()):
+                 clip_cfg: ClipConfig = ClipConfig(),
+                 output_dir: Optional[str] = None, split: str = "train"):
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: t2igan_torch.train_gan runs "
                                "on the card by default; pass --device cpu "
                                "to run on the CPU")
         self.cfg = cfg
+        self.dtype = dtype
+        self.output_dir = output_dir
         self.tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
-        self.dataset = SyntheticDataset(cfg, seed=seed)
+        self.dataset = make_dataset(cfg, split)
         rng = torch.Generator().manual_seed(seed)
         self.clip = load_clip(cfg, clip_cfg, rng).requires_grad_(False).to(
             dev)
@@ -67,29 +116,100 @@ class CondGanTrainer:
         self.step_fn = make_gan_step(cfg, self.clip, dtype)
         self.noise = torch.Generator(device=dev).manual_seed(seed + 1)
         self.order = np.random.default_rng(seed)
+        self.epoch = 0  # epochs done: train() goes on from here
+        # (permutation, batches done) of an epoch stopped part-way.
+        self._epoch_left: Optional[Tuple[np.ndarray, int]] = None
+        self._eval_clip = self._eval_gen = None
+        self._mis_bank: Optional[MisCaptionBank] = None
+        self._resume()
+
+    # ------------------------------------------------------------ resume --
+
+    def _resume(self) -> None:
+        cfg, state = self.cfg, self.state
+        net_g = cfg.TRAIN.NET_G
+        if net_g and os.path.isfile(net_g) and net_g.endswith(
+                (".npz", ".pth")):
+            load_generator_weights(state.gen, net_g)
+            print(f"Loaded generator weights: {net_g}")
+            # G and its EMA start equal, as distinct tensors.
+            state.gen_ema.load_state_dict(state.gen.state_dict())
+            self.epoch = parse_epoch_from_path(net_g) + 1
+            if cfg.TRAIN.B_NET_D:
+                for i, d in enumerate(state.ds):
+                    path = os.path.join(os.path.dirname(net_g),
+                                        f"netD{i}.pth")
+                    if os.path.isfile(path):
+                        load_discriminator_pth(d, path)
+                        print(f"Loaded torch discriminator: {path}")
+            return
+        resume_dir = net_g or (self.output_dir and self._out("Model"))
+        if resume_dir and os.path.isdir(resume_dir):
+            payload, step = CheckpointManager(resume_dir).restore()
+            if payload is not None:
+                self.epoch, self._epoch_left = restore_gan_payload(
+                    state, payload, self.noise, self.order)
+                print(f"Resumed GAN state from step {step} ({self.epoch} "
+                      f"epochs done) in {resume_dir}")
+                return
+        where = f"TRAIN.NET_G {net_g!r} names no checkpoint" if net_g \
+            else "no checkpoint to resume"
+        print(f"NOTE: {where}; keeping the seeded weights.")
+
+    # -------------------------------------------------------------- data --
+
+    def collate(self, index: Sequence[int], with_images: bool = True
+                ) -> Dict:
+        """The records at ``index`` as one batch: both caption views
+        tokenized to ``TEXT.WORDS_NUM``, class ids, keys and (with
+        ``with_images``) the image pyramid."""
+        recs = [self.dataset[int(i)] for i in index]
+        words = self.cfg.TEXT.WORDS_NUM
+        tok1 = self.tokenizer([r.caption for r in recs], words)
+        tok2 = self.tokenizer([r.caption_2 for r in recs], words)
+        batch = {"ids": tok1["input_ids"], "mask": tok1["attention_mask"],
+                 "ids_2": tok2["input_ids"],
+                 "mask_2": tok2["attention_mask"],
+                 "class_ids": np.asarray([r.class_id for r in recs],
+                                         np.int32),
+                 "keys": [r.key for r in recs]}
+        if with_images:
+            batch["images"] = [np.stack([r.images[k] for r in recs])
+                               for k in range(len(recs[0].images))]
+        return batch
+
+    def _index_batches(self, order: np.ndarray) -> Iterator[np.ndarray]:
+        """``TRAIN.BATCH_SIZE`` indices at a time; a last partial batch is
+        dropped, as the JAX ``DataLoader``'s ``drop_last``."""
+        b = self.cfg.TRAIN.BATCH_SIZE
+        for start in range(0, len(order) - b + 1, b):
+            yield order[start:start + b]
 
     def batches(self) -> Iterator[Dict]:
-        """Shuffled batches of ``TRAIN.BATCH_SIZE`` records, epoch after
-        epoch (a last partial batch is dropped)."""
-        b, words = self.cfg.TRAIN.BATCH_SIZE, self.cfg.TEXT.WORDS_NUM
+        """Shuffled batches, epoch after epoch, each epoch in the order of
+        the next permutation drawn from ``self.order``."""
         while True:
-            perm = self.order.permutation(len(self.dataset))
-            for start in range(0, len(perm) - b + 1, b):
-                recs = [self.dataset[int(i)] for i in perm[start:start + b]]
-                tok1 = self.tokenizer([r.caption for r in recs], words)
-                tok2 = self.tokenizer([r.caption_2 for r in recs], words)
-                yield {
-                    "images": [np.stack([r.images[k] for r in recs])
-                               for k in range(len(recs[0].images))],
-                    "ids": tok1["input_ids"],
-                    "mask": tok1["attention_mask"],
-                    "ids_2": tok2["input_ids"],
-                    "mask_2": tok2["attention_mask"],
-                    "class_ids": np.asarray([r.class_id for r in recs]),
-                }
+            for idx in self._index_batches(self.order.permutation(
+                    len(self.dataset))):
+                yield self.collate(idx)
 
-    def train(self, steps: int) -> Dict[str, float]:
-        """Take ``steps`` steps; returns the last step's metrics."""
+    def eval_batches(self) -> Iterator[Dict]:
+        """Batches in dataset order without the image pyramid (the
+        sweep's)."""
+        for idx in self._index_batches(np.arange(len(self.dataset))):
+            yield self.collate(idx, with_images=False)
+
+    def _out(self, *parts: str) -> str:
+        if self.output_dir is None:
+            raise ValueError("this writes files: give the trainer an "
+                             "output_dir")
+        return os.path.join(self.output_dir, *parts)
+
+    # ---------------------------------------------------------- training --
+
+    def train_steps(self, steps: int) -> Dict[str, float]:
+        """Take ``steps`` steps on a fresh shuffled stream, with one printed
+        line each, and write nothing; returns the last step's metrics."""
         metrics: Dict[str, float] = {}
         batches = self.batches()
         for _ in range(steps):
@@ -97,12 +217,202 @@ class CondGanTrainer:
             out = self.step_fn(self.state, next(batches),
                                generator=self.noise)
             metrics = {k: float(v) for k, v in out.items()}
-            d_loss = sum(metrics[f"d_loss{i}"]
-                         for i in range(len(self.state.ds)))
-            print(f"[{self.state.step}] Loss_D: {d_loss:.4f} "
+            print(f"[{self.state.step}] Loss_D: {self._d_loss(metrics):.4f} "
                   f"Loss_G: {metrics['g_loss']:.4f} "
                   f"Time: {time.perf_counter() - t0:.2f}s", flush=True)
         return metrics
+
+    def _d_loss(self, metrics: Dict[str, float]) -> float:
+        return sum(metrics[f"d_loss{i}"] for i in range(len(self.state.ds)))
+
+    def train(self, max_epochs: Optional[int] = None) -> Dict[str, float]:
+        """Epochs ``self.epoch`` .. ``max_epochs - 1`` (default
+        ``TRAIN.MAX_EPOCH``) of shuffled batches, one line per epoch.
+        Every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last it
+        writes the full train state, ``Model/netG_epoch_%d.pth`` (the EMA
+        weights with G's running statistics), ``Model/netD%d.pth`` and
+        ``Image/G_%d.png``.  SIGTERM or SIGINT ends the step under way,
+        saves the full state with the epoch's permutation and the batches
+        done, and returns; a resumed run takes the rest of that epoch.
+        Returns the last step's metrics."""
+        self._out()
+        epochs = max_epochs if max_epochs is not None else \
+            self.cfg.TRAIN.MAX_EPOCH
+        metrics: Dict[str, float] = {}
+        stop = GracefulShutdown()
+        try:
+            for epoch in range(self.epoch, epochs):
+                start = time.perf_counter()
+                perm, done = self._epoch_left or (
+                    self.order.permutation(len(self.dataset)), 0)
+                self._epoch_left = None
+                out = {}
+                for i, idx in enumerate(itertools.islice(
+                        self._index_batches(perm), done, None), done):
+                    out = self.step_fn(self.state, self.collate(idx),
+                                       generator=self.noise)
+                    if stop.requested:
+                        self._epoch_left = (perm, i + 1)
+                        break
+                metrics = {k: float(v) for k, v in out.items()}
+                if metrics:
+                    print(f"[{epoch}/{epochs}] Loss_D: "
+                          f"{self._d_loss(metrics):.2f} Loss_G: "
+                          f"{metrics['g_loss']:.2f} Time: "
+                          f"{time.perf_counter() - start:.2f}s", flush=True)
+                if stop.requested:
+                    print("Shutdown requested: checkpointing and exiting.")
+                    self.save_state()
+                    break
+                self.epoch = epoch + 1
+                if epoch % self.cfg.TRAIN.SNAPSHOT_INTERVAL == 0 or \
+                        epoch == epochs - 1:
+                    self.snapshot(epoch)
+        finally:
+            stop.restore()
+        return metrics
+
+    def save_state(self) -> str:
+        """Write the full train state under ``Model/``; returns its
+        path."""
+        return CheckpointManager(self._out("Model")).save(
+            self.state.step, gan_payload(self.state, self.epoch, self.noise,
+                                         self.order, self._epoch_left))
+
+    def snapshot(self, epoch: int) -> None:
+        """The full state, ``netG_epoch_<epoch>.pth``, ``netD%d.pth`` and
+        the sample sheet ``Image/G_<epoch>.png``."""
+        self.save_state()
+        save_generator_pth(self.state.gen_ema,
+                           self._out("Model", f"netG_epoch_{epoch}.pth"),
+                           stats_from=self.state.gen)
+        for i, d in enumerate(self.state.ds):
+            save_discriminator_pth(d, self._out("Model", f"netD{i}.pth"))
+        self._save_sample_grid(epoch)
+
+    def _save_sample_grid(self, tag) -> None:
+        """The finest images of the EMA G on the first ``BATCH_SIZE``
+        records in dataset order (view-1 captions), with fixed noise
+        (``z`` from a generator seeded 42, zero ``eps``), as one sheet
+        ``Image/G_<tag>.png``."""
+        n = min(self.cfg.TRAIN.BATCH_SIZE, len(self.dataset))
+        batch = self.collate(range(n), with_images=False)
+        z = torch.randn((n, self.cfg.GAN.Z_DIM),
+                        generator=torch.Generator().manual_seed(42))
+        eps = torch.zeros((n, self.cfg.GAN.CONDITION_DIM))
+        fakes = make_sampler(self.cfg, *self.eval_models())(
+            batch["ids"], batch["mask"], z, eps)
+        save_image_grid(tanh_to01(fakes[-1].float().cpu().numpy()),
+                        self._out("Image", f"G_{tag}.png"))
+
+    # -------------------------------------------------------- evaluation --
+
+    def eval_models(self, use_ema: bool = True):
+        """(CLIP, G) for sampling, in eval mode in the trainer's dtype: the
+        modules themselves in f32; otherwise copies in ``dtype``, whose
+        G is refilled from the EMA (or the trained G) with
+        ``load_state_dict`` at every call."""
+        src = self.state.gen_ema if use_ema else self.state.gen
+        if self.dtype == torch.float32:
+            return self.clip.eval(), src
+        if self._eval_clip is None:
+            self._eval_clip = copy.deepcopy(self.clip).to(self.dtype).eval()
+        if self._eval_gen is None:
+            self._eval_gen = copy.deepcopy(src).requires_grad_(False).to(
+                self.dtype)
+        else:
+            self._eval_gen.load_state_dict(src.state_dict())
+        return self._eval_clip, self._eval_gen
+
+    def sweep_words(self, clip) -> int:
+        """Tokens per caption in the R-precision ranking: 77, or the CLIP's
+        positions when it has fewer."""
+        return min(77, clip.cfg.max_positions)
+
+    def mis_caption_bank(self, words_num: int) -> MisCaptionBank:
+        """The split's captions tokenized once; kept across sweeps, so its
+        draws go on where the last sweep left them, as in the JAX
+        package."""
+        if self._mis_bank is None or self._mis_bank.words_num != words_num:
+            self._mis_bank = MisCaptionBank(self.dataset, self.tokenizer,
+                                            words_num)
+        return self._mis_bank
+
+    def sampling(self, split_dir: str = "valid", num_rounds: int = 11,
+                 r_target: int = 30000, save_images: bool = True,
+                 use_ema: bool = True, n_mis: int = 99,
+                 noise: Optional[NoiseFn] = None) -> Tuple[float, float]:
+        """The generation + R-precision sweep: ``num_rounds`` passes over
+        the split's batches in dataset order (a last partial batch
+        dropped).  Each batch is sampled with ``z`` and ``eps`` from
+        ``noise(b)`` (default: a generator seeded 100, ``z`` then ``eps``),
+        its finest images are written as
+        ``<output_dir>/<split_dir>/single/<key>_<round>.png`` (truncating
+        to uint8 as the JAX package does), resized 256 -> CLIP size
+        (nearest-exact) and ranked against their true and ``n_mis`` other
+        captions.  At ``r_target`` ranked images it stops; it prints ``R
+        mean:... std:...`` and returns (mean, std) of
+        :func:`bootstrap_r_precision`."""
+        cfg = self.cfg
+        clip, gen = self.eval_models(use_ema)
+        sampler = make_sampler(cfg, clip, gen)
+        rank = make_rank_fn(clip)
+        bank = self.mis_caption_bank(self.sweep_words(clip))
+        if noise is None:
+            draw = torch.Generator().manual_seed(100)
+
+            def noise(b):
+                return (torch.randn((b, cfg.GAN.Z_DIM), generator=draw),
+                        torch.randn((b, cfg.GAN.CONDITION_DIM),
+                                    generator=draw))
+
+        save_dir = self._out(split_dir, "single") if save_images else None
+        hits: List[bool] = []
+        # PNG encodes run on IO threads; leaving the block joins them.
+        with ThreadPoolExecutor(4) as io_pool:
+            for round_i in range(num_rounds):
+                for batch in self.eval_batches():
+                    b = len(batch["keys"])
+                    z, eps = noise(b)
+                    finest = sampler(batch["ids"], batch["mask"], z, eps)[-1]
+                    if save_images:
+                        u8 = uint8_from_tanh(finest).cpu().numpy()
+                        for j, key in enumerate(batch["keys"]):
+                            io_pool.submit(write_png, os.path.join(
+                                save_dir, f"{key}_{round_i}.png"), u8[j])
+                    mis_ids, mis_mask = bank.sample(batch["class_ids"],
+                                                    n_mis)
+                    # A whole batch, so the resized images start aligned
+                    # for the bf16 kernels (ROADMAP F11).
+                    resized = resize_nearest(
+                        finest, clip.cfg.image_size).contiguous()
+                    flags, _ = rank(resized, batch["ids"], batch["mask"],
+                                    mis_ids, mis_mask)
+                    hits.extend(flags.cpu().tolist())
+                    if len(hits) >= r_target:
+                        mean, std = bootstrap_r_precision(np.asarray(hits))
+                        print(f"R mean:{mean:.4f} std:{std:.4f}")
+                        return mean, std
+        mean, std = (bootstrap_r_precision(np.asarray(hits)) if hits
+                     else (float("nan"), float("nan")))
+        print(f"R mean:{mean:.4f} std:{std:.4f} (n={len(hits)})")
+        return mean, std
+
+    def gen_example(self, captions_by_key: Dict[str, List[str]],
+                    n_samples: int = 1) -> None:
+        """Images of the EMA G for user captions (``{name: [caption,
+        ...]}``, as ``main.load_example_captions`` builds it): each
+        stage's images as ``<output_dir>/<name>/<s>_s_<j>_g<k>.png`` for
+        sample ``s``, caption ``j`` and stage ``k``, noise from a generator
+        seeded 0.  The attention grids are not written (ROADMAP.md, Queue
+        1)."""
+        sampler = make_sampler(self.cfg, *self.eval_models())
+        draw = torch.Generator().manual_seed(0)
+        for key, captions in captions_by_key.items():
+            for s in range(n_samples):
+                sample_and_write(self.cfg, sampler, self.tokenizer, captions,
+                                 draw, self._out(key),
+                                 lambda j, k, s=s: f"{s}_s_{j}_g{k}.png")
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -121,5 +431,5 @@ def main(argv: Optional[Sequence[str]] = None,
         cfg = cfg_replace(cfg, TRAIN={"BATCH_SIZE": args.batch})
     trainer = CondGanTrainer(cfg, args.device, DTYPES[args.dtype], args.seed,
                              clip_cfg)
-    trainer.train(args.steps)
+    trainer.train_steps(args.steps)
     return trainer

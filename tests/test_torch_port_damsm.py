@@ -514,7 +514,7 @@ def test_pretrain_damsm_entry_point_on_cpu(tmp_path, capsys):
             assert math.isfinite(float(ln.split(f" {key} ")[1].split()[0]))
     assert trainer.state.step == 4
     assert sorted(p.name for p in (out / "Model").iterdir()) == [
-        "clip0.pth", "clip1.pth"]
+        "clip0.pth", "clip1.pth", "state_00000002.pt", "state_00000004.pt"]
 
 
 def test_pretrain_damsm_defaults_to_the_card(tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 """The port's package boundary: config, tokenizer and YAML copies agree
 with the JAX package's, the package and ``chip_smoke.py`` import nothing
-of JAX or ``t2igan``, and ``chip_smoke.py`` refuses to run without a
-card."""
+of JAX, ``t2igan`` or PIL (the card machine has none of them), and
+``chip_smoke.py`` refuses to run without a card."""
 
 import ast
 import dataclasses
@@ -22,7 +22,7 @@ from t2igan_torch.data import tokenizer as ttok
 REPO = Path(__file__).resolve().parents[1]
 JAX_CONFIGS = sorted((REPO / "t2igan" / "configs").rglob("*.yml"))
 PORT = Path(t2igan_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "t2igan")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "t2igan", "PIL")
 
 CAPTIONS = [
     "this bird has a red crown and a short pointed beak",
@@ -180,6 +180,14 @@ def test_import_guard_covers_every_module_of_the_damsm_slice():
     sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"train/schedule.py", "train/pretrain_damsm.py",
             "pretrain_damsm.py"} <= sources
+
+
+def test_import_guard_covers_every_module_of_the_checkpoint_slice():
+    """The modules the train -> checkpoint -> evaluate slice added."""
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"train/checkpoint.py", "train/export.py",
+            "evaluation/rprecision.py", "utils/__init__.py", "utils/png.py",
+            "utils/viz.py", "main.py"} <= sources
 
 
 def test_importing_the_port_loads_no_jax_or_t2igan():
