@@ -77,6 +77,19 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    host takes to launch them; the host time of a wrapper call is printed
    beside them.
 
+7. (after phase 5) drives real data: the committed JPEG/PNG fixtures
+   decoded by the port's own decoder and held to the sha256 of PIL's RGB
+   bytes recorded beside them; a CUB-shaped tree written from the CUB-sized
+   fixtures (96 train and 32 test records over 8 classes); the loader
+   alone at clip_bird_dmgan.yml's pyramid (batch 16) and damsm/bird.yml's
+   224 px (batch 48), each at its YAML's WORKERS and at 8, with where its
+   time goes on one thread; CondGanTrainer on the tree (bf16, batch 16, 4
+   K1 + 4 K2 launches a step) and DamsmTrainer on the tree (bf16, batch
+   48), each beside its synthetic step of phase 5; sampling() on the
+   tree's test captions writing PNGs, then ``python -m
+   t2igan_torch.fid_score`` and ``python -m t2igan_torch.inception_score``
+   on the card (random Inception weights).
+
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the process
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -87,6 +100,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -1060,7 +1074,7 @@ def drive_damsm_path():
         if not all(os.path.isfile(p) for p in paths):
             raise AssertionError(f"missing checkpoints {paths}")
         fresh = load_clip_pth(build_clip(), paths[1]).to("cuda")
-        batch = next(iter(trainer.val_batches))
+        batch = next(iter(trainer.val_batches)).arrays(finest_only=True)
         clip.eval()
         with torch.no_grad():
             outs = []
@@ -1101,6 +1115,17 @@ def _module_tensors(trainer):
         for i, st in opt.state_dict()["state"].items():
             out.update({f"{name}.{i}.{k}": v for k, v in st.items()})
     return out
+
+
+def caption_rows(trainer, n):
+    """(ids, mask, class ids) of ``n`` caption rows: the trainer's loader's
+    probe batch (no stream moves), its rows repeated."""
+    import numpy as np
+
+    batch = trainer.loader.peek(with_images=False)
+    idx = np.arange(n) % len(batch.keys)
+    return (batch.input_ids[idx], batch.attention_mask[idx],
+            batch.class_ids[idx])
 
 
 def drive_checkpoint_loop(card):
@@ -1201,13 +1226,14 @@ def drive_checkpoint_loop(card):
         same = same and (resumed.epoch, resumed.state.step) == (2, steps) \
             and torch.equal(resumed.noise.get_state(),
                             trainer.noise.get_state()) \
-            and resumed.order.bit_generator.state == \
-            trainer.order.bit_generator.state
+            and resumed.loader.epoch == trainer.loader.epoch \
+            and resumed.dataset.rng.bit_generator.state == \
+            trainer.dataset.rng.bit_generator.state
         print(f"checkpoint loop: a fresh trainer resumed from "
               f"state_{steps:08d}.pt in {time.perf_counter() - t0:.2f} s: "
               f"{len(a)} tensors (parameters, statistics, spectral vectors, "
-              f"Adam moments), step, epoch and both generators' states "
-              f"bitwise equal {same}")
+              f"Adam moments), step, epoch, the loader's epoch and both "
+              f"generators' states bitwise equal {same}")
         if not same:
             raise AssertionError("resumed state differs from the saved run")
         del resumed
@@ -1216,12 +1242,11 @@ def drive_checkpoint_loop(card):
         net_g = os.path.join(out, "Model", "netG_epoch_1.pth")
         fresh = load_generator_pth(build_generator(cfg), net_g).to(
             "cuda", memory_format=torch.channels_last)
-        batch = trainer.collate(range(4), with_images=False)
+        ids, mask, _ = caption_rows(trainer, 4)
         g = torch.Generator().manual_seed(11)
         z = torch.randn((4, cfg.GAN.Z_DIM), generator=g)
         eps = torch.randn((4, cfg.GAN.CONDITION_DIM), generator=g)
-        outs = [make_sampler(cfg, trainer.clip, gen)(batch["ids"],
-                                                     batch["mask"], z, eps)
+        outs = [make_sampler(cfg, trainer.clip, gen)(ids, mask, z, eps)
                 for gen in (trainer.state.gen_ema, fresh)]
         same = all(torch.equal(x, y) for x, y in zip(*outs))
         print(f"checkpoint loop: netG_epoch_1.pth in a fresh GNet, f32 "
@@ -1271,16 +1296,15 @@ def drive_checkpoint_loop(card):
                 make_rank_fn(clip)
             bank = ev.mis_caption_bank(ev.sweep_words(clip))
             for bt in (b, TIMED_BATCH):
-                tb = ev.collate(np.arange(bt) % len(ev.dataset),
-                                with_images=False)
+                ids, mask, class_ids = caption_rows(ev, bt)
                 g = torch.Generator().manual_seed(12)
                 z = torch.randn((bt, sweep_cfg.GAN.Z_DIM), generator=g)
                 eps = torch.randn((bt, sweep_cfg.GAN.CONDITION_DIM),
                                   generator=g)
                 mis = [torch.as_tensor(x, device="cuda")
-                       for x in bank.sample(tb["class_ids"], 99)]
-                ids, mask = (torch.as_tensor(tb[k], device="cuda")
-                             for k in ("ids", "mask"))
+                       for x in bank.sample(class_ids, 99)]
+                ids, mask = (torch.as_tensor(x, device="cuda")
+                             for x in (ids, mask))
                 z, eps = z.cuda(), eps.cuda()
                 images = resize_nearest(sampler(ids, mask, z, eps)[-1],
                                         clip.cfg.image_size).contiguous()
@@ -1397,7 +1421,8 @@ def check_damsm_step_card_vs_cpu():
             t0 = time.perf_counter()
             trainer = DamsmTrainer(cfg, tmp, device, torch.float32, seed=0)
             clip = trainer.state.clip
-            batch = next(iter(trainer.train_batches))
+            batch = next(iter(trainer.train_batches)).arrays(
+                finest_only=True)
             total, metrics = make_damsm_loss(cfg, clip)(batch)
             params = dict(clip.named_parameters())
             grads = torch.autograd.grad(total, list(params.values()),
@@ -1459,12 +1484,14 @@ def check_damsm_step_card_vs_cpu():
 def time_damsm_step(card):
     """Phase 5f: the DAMSM step at batch 48 (damsm/bird.yml: ViT-B/32,
     224 px, 30 tokens) in bf16 and f32 on the JAX bench's DAMSM inputs,
-    CUDA events over 10 steps after 3 warm-ups."""
+    CUDA events over 10 steps after 3 warm-ups; returns ms/step by
+    dtype."""
     import torch
 
     from t2igan_torch.profile_step import damsm_call
 
     b = 48
+    out = {}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         step = damsm_call(b, dtype)
         last = {}
@@ -1477,7 +1504,9 @@ def time_damsm_step(card):
               f"metrics finite {finite}")
         if not finite:
             raise AssertionError("DAMSM step metrics not finite")
+        out[name] = ms
         del step
+    return out
 
 
 def time_train_step(card):
@@ -1790,6 +1819,320 @@ def time_memory_read(card, results):
                     "bytes" if t_bytes >= t_ops else "operations")
     results["memory_read_fwd"].update(totals)
 
+# ------------------------------------------------------------- phase 7 ----
+
+def check_decoder():
+    """Phase 7a: every committed image fixture decoded by the port's own
+    decoder, held to the sha256 of PIL's RGB bytes recorded beside it."""
+    import hashlib
+
+    from t2igan_torch.data import native
+
+    testdata = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "t2igan_torch", "testdata")
+    with open(os.path.join(testdata, "fixtures.json")) as f:
+        record = json.load(f)
+    seconds = native.build()
+    print(f"real data: host library built with g++ in {seconds:.1f} s "
+          f"({native.library_path().name})")
+    bad = []
+    t0 = time.perf_counter()
+    for name, rec in sorted(record["files"].items()):
+        rgb = native.decode_image(os.path.join(testdata, name))
+        if hashlib.sha256(rgb.tobytes()).hexdigest() != rec["sha256_rgb"] \
+                or list(rgb.shape) != rec["shape"]:
+            bad.append(name)
+    seconds = time.perf_counter() - t0
+    n = len(record["files"])
+    print(f"real data: decoded {n} fixtures ({record['written_by']}) in "
+          f"{seconds:.3f} s: {n - len(bad)} match PIL's RGB sha256"
+          f"{' ok' if not bad else ', FAIL ' + str(bad)}")
+    if bad or n < 30:
+        raise AssertionError(f"decoded fixtures differ from PIL's: {bad}")
+    return sorted(os.path.join(testdata, name) for name in record["files"]
+                  if name.startswith("cub_"))
+
+
+def time_loader_parts(card, sources, tree, words, sizes, batch):
+    """Where a loader's time goes, on one host thread: decode, bbox crop +
+    scale/crop/flip + pyramid + normalise, collate (tokenise both views),
+    and the pinned host-to-device copy of a batch (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from t2igan_torch.data import native
+    from t2igan_torch.data.dataset import ImageTransform, crop_to_bbox
+    from t2igan_torch.data.tokenizer import ClipTokenizer
+
+    reps = 3
+    t0 = time.perf_counter()
+    imgs = [native.decode_image(s) for _ in range(reps) for s in sources]
+    decode = (time.perf_counter() - t0) / len(imgs) * 1e3
+    tf = ImageTransform(sizes[-1])
+    crops = [crop_to_bbox(im, (im.shape[1] // 8, im.shape[0] // 8,
+                               im.shape[1] * 3 // 4, im.shape[0] * 3 // 4))
+             for im in imgs]
+    t0 = time.perf_counter()
+    for im in crops:
+        nw, nh = tf.scaled_dims(im.shape[1], im.shape[0])
+        native.pyramid(im, tf.scale, tf.imsize, (nw - tf.imsize) // 2,
+                       (nh - tf.imsize) // 2, True, sizes)
+    pyramid = (time.perf_counter() - t0) / len(crops) * 1e3
+    tok = ClipTokenizer.load(None)
+    with open(os.path.join(tree, "captions.pickle"), "rb") as f:
+        caps = pickle.load(f)[0]
+    t0 = time.perf_counter()
+    for i in range(5):
+        tok(caps[i * batch:(i + 1) * batch], max_length=words)
+        tok(caps[(i + 1) * batch:(i + 2) * batch], max_length=words)
+    tokenise = (time.perf_counter() - t0) / 5 * 1e3
+    host = [torch.empty((batch, s, s, 3), pin_memory=True) for s in sizes]
+    ms = cuda_ms(lambda: [h.to("cuda", non_blocking=True) for h in host],
+                 iters=10)
+    mb = sum(h.numel() * 4 for h in host) / 2 ** 20
+    print(f"[{card}] loader parts, one host thread, batch {batch} at "
+          f"{'/'.join(map(str, sizes))} px: decode {decode:.3f} ms an image "
+          f"(CUB-sized fixtures), bbox crop + scale/crop/flip + pyramid + "
+          f"normalise {pyramid:.3f} ms an image, tokenise both views "
+          f"{tokenise:.3f} ms a batch, pinned H2D copy of {mb:.1f} MiB "
+          f"{ms:.3f} ms a batch")
+    return decode + pyramid
+
+
+def time_loader(card, cfg, words, workers, epochs):
+    """Phase 7c: the loader alone on the tree (native engine, images in
+    pinned memory, no step behind it): images/s and ms a batch over
+    ``epochs`` epochs after one warm-up epoch."""
+    from t2igan_torch.data.dataset import TextImageDataset
+    from t2igan_torch.data.pipeline import DataLoader
+    from t2igan_torch.data.tokenizer import ClipTokenizer
+
+    ds = TextImageDataset(cfg, "train")
+    loader = DataLoader(ds, ClipTokenizer.load(None), cfg.TRAIN.BATCH_SIZE,
+                        words, num_workers=workers, pin_memory=True)
+    try:
+        list(loader)
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(epochs):
+            for batch in loader:
+                n += len(batch.keys)
+        seconds = time.perf_counter() - t0
+    finally:
+        loader.close()
+    batches = n // cfg.TRAIN.BATCH_SIZE
+    print(f"[{card}] loader {'/'.join(map(str, cfg.branch_sizes))} px, "
+          f"batch {cfg.TRAIN.BATCH_SIZE}, {workers} workers "
+          f"({loader.engine_in_use()} engine): {n / seconds:.1f} images/s, "
+          f"{seconds / batches * 1e3:.3f} ms a batch ({n} images)")
+    return n / seconds
+
+
+def drive_real_data(card, train_ms, damsm_ms):
+    """Phase 7: real data on the card.  (a) the committed fixtures decoded
+    bitwise as PIL; (b) a CUB-shaped tree of the CUB-sized fixtures (96
+    train and 32 test records over 8 classes, seeded bboxes, 10 captions
+    an image); (c) the loader alone at clip_bird_dmgan.yml's pyramid
+    (batch 16, WORKERS 2 and 8) and damsm/bird.yml's 224 px (batch 48,
+    WORKERS 1 and 8); (d) CondGanTrainer on the tree at full width, bf16,
+    batch 16, the epoch loop of its train() (one warm epoch, two timed;
+    4 K1 + 4 K2 a step) at WORKERS 2 and 8, beside the synthetic step of
+    phase 5b; (e) DamsmTrainer on the tree, bf16, batch 48, one warm epoch
+    and two timed at WORKERS 1 and 8, beside phase 5f's synthetic step; (f)
+    sampling() one round at eval_clip_bird.yml widths writing PNGs, then
+    ``python -m t2igan_torch.fid_score`` (PNGs against the tree's images)
+    and ``python -m t2igan_torch.inception_score``, random Inception
+    weights."""
+    import tempfile
+
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import CLIP_BIRD_DMGAN, DAMSM_BIRD, \
+        EVAL_CLIP_BIRD
+    from t2igan_torch.data.cub_tree import write_cub_tree
+    from t2igan_torch.data.dataset import TextImageDataset
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.pretrain_damsm import DAMSM_WORDS_NUM, \
+        DamsmTrainer
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    def reset():
+        for name in list(LAUNCHES):
+            LAUNCHES[name] = 0
+
+    sources = check_decoder()
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        t0 = time.perf_counter()
+        tree = write_cub_tree(tmp, sources, n_train=96, n_test=32,
+                              n_classes=8, captions_per_image=10, seed=0)
+        print(f"real data: CUB-shaped tree of {len(sources)} CUB-sized "
+              f"JPEGs, 96 train + 32 test records over 8 classes, written "
+              f"in {time.perf_counter() - t0:.2f} s")
+        gan_cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN), DATA_DIR=tree,
+                              TRAIN={"BATCH_SIZE": TRAIN_BATCH,
+                                     "CLIP_MODEL_CHECKPOINT": ""})
+        damsm_cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD), DATA_DIR=tree,
+                                TRAIN={"EVAL_MAX_BATCHES": 1})
+        for cfg, words in ((gan_cfg, gan_cfg.TEXT.WORDS_NUM),
+                           (damsm_cfg, DAMSM_WORDS_NUM)):
+            time_loader_parts(card, sources, tree, words, cfg.branch_sizes,
+                              cfg.TRAIN.BATCH_SIZE)
+            for workers in (cfg.WORKERS, 8):
+                time_loader(card, cfg, words, workers,
+                            epochs=4 if cfg is gan_cfg else 6)
+
+        # (d) the GAN trainer on decoded data.
+        trainer = CondGanTrainer(gan_cfg, "cuda", torch.bfloat16, seed=0)
+        if not isinstance(trainer.dataset, TextImageDataset):
+            raise AssertionError("the GAN trainer did not read the tree")
+        per_step = []
+        step_fn = trainer.step_fn
+
+        def counted(*args, **kwargs):
+            before = dict(LAUNCHES)
+            out = step_fn(*args, **kwargs)
+            per_step.append({k: LAUNCHES[k] - before.get(k, 0)
+                             for k in LAUNCHES})
+            return out
+
+        trainer.step_fn = counted
+
+        def epochs(n):
+            """``n`` epochs of the loop of CondGanTrainer.train (no
+            snapshot, no sync inside); returns the last step's output."""
+            out = {}
+            for _ in range(n):
+                order = trainer.loader.next_order()
+                for batch in trainer.device_batches(
+                        trainer.loader.batches(order)):
+                    out = trainer.step_fn(trainer.state, batch,
+                                          generator=trainer.noise)
+            return out
+
+        for workers in (gan_cfg.WORKERS, 8):
+            trainer.loader.close()
+            trainer.loader.num_workers = workers
+            epochs(1)
+            torch.cuda.synchronize()
+            reset()
+            per_step.clear()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in epochs(2).items()}
+            torch.cuda.synchronize()
+            steps = len(per_step)
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            ok = (steps == 2 * len(trainer.loader) and all(
+                c.get("memory_read_fwd") == 4
+                and c.get("memory_read_bwd") == 4
+                and c.get("reschain", 0) == 0 for c in per_step)
+                and all(math.isfinite(v) for v in metrics.values()))
+            print(f"[{card}] real-data GAN train bf16 batch {TRAIN_BATCH} "
+                  f"(clip_bird_dmgan.yml widths, {workers} workers"
+                  f"{' = WORKERS' if workers == gan_cfg.WORKERS else ''}, "
+                  f"decoded tree; the epoch loop of CondGanTrainer.train, "
+                  f"loader and H2D included): {ms:.3f} ms/step over {steps} "
+                  f"steps (2 epochs), against {train_ms:.3f} ms/step on "
+                  f"device-resident synthetic batches (phase 5b, same "
+                  f"call); launches {dict(LAUNCHES)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"real-data train steps: {per_step}, "
+                                     f"{metrics}")
+        trainer.loader.close()
+        del trainer
+
+        # (e) DAMSM on decoded data.
+        out = os.path.join(tmp, "damsm")
+        trainer = DamsmTrainer(damsm_cfg, out, "cuda", torch.bfloat16, seed=0)
+        if not isinstance(trainer.train_batches.dataset, TextImageDataset):
+            raise AssertionError("the DAMSM trainer did not read the tree")
+        for workers in (damsm_cfg.WORKERS, 8):
+            trainer.train_batches.close()
+            trainer.train_batches.num_workers = workers
+            reset()
+            trainer.train_epoch(0)
+            torch.cuda.synchronize()
+            step0 = trainer.state.step
+            t0 = time.perf_counter()
+            metrics = {}
+            for epoch in (1, 2):
+                metrics = trainer.train_epoch(epoch)
+            torch.cuda.synchronize()
+            steps = trainer.state.step - step0
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            ok = (steps == 2 * len(trainer.train_batches)
+                  and all(math.isfinite(v) for v in metrics.values())
+                  and not any(LAUNCHES.values()))
+            print(f"[{card}] real-data DAMSM step bf16 batch "
+                  f"{damsm_cfg.TRAIN.BATCH_SIZE} (damsm/bird.yml, {workers} "
+                  f"workers{' = WORKERS' if workers == damsm_cfg.WORKERS else ''}"
+                  f", decoded tree; DamsmTrainer.train_epoch, loader and "
+                  f"H2D included): {ms:.3f} ms/step over {steps} steps, "
+                  f"against {damsm_ms:.3f} ms/step on device-resident "
+                  f"synthetic inputs (phase 5f, same call); launches "
+                  f"{dict(LAUNCHES)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"real-data DAMSM steps: {metrics}")
+        trainer.train_batches.close()
+        del trainer
+
+        # (f) the sweep on the tree, then FID and IS from the directories.
+        eval_cfg = cfg_replace(cfg_from_dict(EVAL_CLIP_BIRD), DATA_DIR=tree,
+                               TRAIN={"NET_G": ""})
+        ev = CondGanTrainer(eval_cfg, "cuda", torch.bfloat16, seed=100,
+                            output_dir=os.path.join(tmp, "eval"),
+                            split="test")
+        b = eval_cfg.TRAIN.BATCH_SIZE
+        calls = len(ev.dataset) // b
+        reset()
+        t0 = time.perf_counter()
+        mean, std = ev.sampling("valid", num_rounds=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        single = os.path.join(tmp, "eval", "valid", "single")
+        pngs = sum(len(f) for _, _, f in os.walk(single))
+        ok = (LAUNCHES.get("memory_read_fwd") == 2 * calls
+              and pngs == calls * b and 0.0 <= mean <= 1.0)
+        print(f"[{card}] real-data sweep: sampling() eval_clip_bird.yml "
+              f"widths, batch {b}, bf16, {calls} batches of the tree's test "
+              f"captions in {seconds:.2f} s: R mean {mean:.4f} std "
+              f"{std:.4f} (random weights: meaningless), {pngs} PNGs, "
+              f"launches {dict(LAUNCHES)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("real-data sweep launches, PNGs or R wrong")
+        del ev
+        real = os.path.join(tree, "CUB_200_2011", "images")
+        n_real = sum(len(f) for _, _, f in os.walk(real))
+        for module, args, n, key in (
+                ("fid_score", ["--path", single, real], pngs + n_real,
+                 "FID:"),
+                ("inception_score", ["--path", single], pngs, "IS mean:")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"t2igan_torch.{module}", *args],
+                capture_output=True, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            seconds = time.perf_counter() - t0
+            lines = proc.stdout.splitlines()
+            value = [ln for ln in lines if ln.startswith(key)]
+            inner = [float(ln.split(" in ")[-1].split()[0]) for ln in lines
+                     if ln.startswith(("statistics of", "scored"))]
+            ok = proc.returncode == 0 and value and inner and all(
+                math.isfinite(float(x)) for x in value[0].replace(
+                    key, "").replace("std:", "").split())
+            print(f"[{card}] python -m t2igan_torch.{module} on the card: "
+                  f"{value[0] if value else '-'} (random Inception weights: "
+                  f"meaningless); {n} images decoded and through Inception "
+                  f"in {inner[0] if inner else float('nan'):.2f} s "
+                  f"({n / inner[0] if inner else float('nan'):.1f} images/s)"
+                  f", {seconds:.2f} s with process start "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{module} failed:\n{proc.stdout}\n"
+                                     f"{proc.stderr}")
+
+
 
 def main() -> int:
     import torch
@@ -1848,10 +2191,11 @@ def main() -> int:
     drive_checkpoint_loop(card)
     time_sampler(card)
     step_ms = time_train_step(card)
-    time_damsm_step(card)
+    damsm_ms = time_damsm_step(card)
     time_memory_read(card, results)
     time_memory_read_bwd(card, results, step_ms)
     time_reschain(card, results)
+    drive_real_data(card, step_ms, damsm_ms["bf16"])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

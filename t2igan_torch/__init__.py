@@ -12,7 +12,13 @@ and nothing of ``t2igan`` or JAX.  Its paths so far:
   DAMSM and NT-Xent losses through the frozen CLIP towers, Adam and the
   G EMA;
 * gen+eval (:func:`t2igan_torch.evaluation.fid.make_gen_activation_fn`):
-  the sampler's images through the FID Inception-v3 to ``pool3``.
+  the sampler's images through the FID Inception-v3 to ``pool3``;
+* the DAMSM fine-tuning step and both trainers, fed by the reference's
+  CUB/COCO datasets (:mod:`t2igan_torch.data.dataset`,
+  :mod:`t2igan_torch.data.pipeline`) whose images the port's own JPEG/PNG
+  decoder reads (``csrc/image_decode.cc``, built with ``g++`` at first use
+  with the C++ pyramid and executor);
+* FID and IS from image directories (:mod:`t2igan_torch.evaluation`).
 
 The memory read of each refinement stage is a pair of hand-written CUDA
 kernels, forward (``csrc/memory_read.cu``) and backward
@@ -20,8 +26,10 @@ kernels, forward (``csrc/memory_read.cu``) and backward
 tail is a third (``csrc/reschain.cu``).  All are built with ``nvcc`` at
 first use.
 
-Entry points: ``python -m t2igan_torch.generate --cfg CFG --captions FILE``
-and ``python -m t2igan_torch.train_gan --cfg CFG --steps N``.
+Entry points: ``python -m t2igan_torch.generate --cfg CFG --captions FILE``,
+``python -m t2igan_torch.train_gan --cfg CFG --steps N``, ``python -m
+t2igan_torch.main``, ``python -m t2igan_torch.pretrain_damsm``, ``python -m
+t2igan_torch.fid_score`` and ``python -m t2igan_torch.inception_score``.
 """
 
 from t2igan_torch.config import Config, cfg_from_dict, cfg_from_file, cfg_replace

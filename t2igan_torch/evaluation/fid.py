@@ -1,20 +1,28 @@
 """FID of the port: Inception activations, Gaussian statistics, the
-Fréchet distance, and the gen+eval path.
+Fréchet distance, image directories, and the gen+eval path.
 
-Port of :mod:`t2igan.evaluation.fid` (its directory walking and CLI are not
-ported yet).  Activations come from :class:`InceptionV3` on the device the
-model lies on; the statistics and the distance are float64 numpy on the
-host, copies of the JAX package's ``_sqrtm_psd`` and ``frechet_distance``.
+Port of :mod:`t2igan.evaluation.fid`.  Activations come from
+:class:`InceptionV3` on the device the model lies on; the statistics and
+the distance are float64 numpy on the host, copies of the JAX package's
+``_sqrtm_psd`` and ``frechet_distance``.  Image files are decoded by the
+port's own decoder (:mod:`t2igan_torch.data.native`: PIL's pixels) on a
+thread pool, one chunk ahead of the model, and each is resized to 299 on
+the host with torch's bilinear kernel (in float64), as pytorch-fid's model
+resizes inside (``python -m t2igan_torch.fid_score`` is the CLI).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from t2igan_torch.config import Config
+from t2igan_torch.data import native
 from t2igan_torch.models.clip import ClipWithRegionHead
 from t2igan_torch.models.generator import GNet
 from t2igan_torch.models.inception import InceptionV3, preprocess
@@ -81,6 +89,100 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
         off = eps * np.eye(s1.shape[0])
         return frechet_distance(mu1, s1 + off, mu2, s2 + off, eps)
     return fid
+
+
+# ---------------------------------------------------------------------------
+# Image directories (pytorch-fid's path interface, fid_score.py:191-222)
+# ---------------------------------------------------------------------------
+
+IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+
+
+def list_images(path: str) -> List[str]:
+    """The image files under ``path``, walked as the JAX package walks it
+    (each directory's names sorted).  BMP and WebP are listed, and the
+    decoder refuses them by name."""
+    out = []
+    for root, _, names in os.walk(path):
+        for n in sorted(names):
+            if os.path.splitext(n)[1].lower() in IMAGE_EXTS:
+                out.append(os.path.join(root, n))
+    return out
+
+
+def resize_bilinear_torch_np(img: np.ndarray, out_h: int,
+                             out_w: int) -> np.ndarray:
+    """One HWC image resized with torch's bilinear kernel
+    (``align_corners=False``, no antialias), computed in float64 and
+    rounded once to float32 (within a few float32 steps of any float32
+    evaluation of the same filter, the JAX package's matrix form
+    included)."""
+    x = torch.from_numpy(np.asarray(img, np.float64))
+    y = F.interpolate(x.permute(2, 0, 1)[None], size=(out_h, out_w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).float().numpy()
+
+
+def _decode_for_fid(path: str, size: int) -> np.ndarray:
+    """One file -> [0, 1] float32 HWC at ``size`` (pytorch-fid's
+    ImagePathDataset + ToTensor + the model's resize)."""
+    arr = native.decode_image(path).astype(np.float32) / 255.0
+    if arr.shape[:2] != (size, size):
+        arr = resize_bilinear_torch_np(arr, size, size)
+    return arr
+
+
+def chunked(files: Sequence[str], batch_size: int, make,
+            num_workers: int = 6) -> Iterator[np.ndarray]:
+    """``make(path)`` of every file on ``num_workers`` threads, stacked
+    ``batch_size`` at a time, the next chunk made while the current one is
+    consumed."""
+    chunks = [files[s:s + batch_size]
+              for s in range(0, len(files), batch_size)]
+    # Two pools, so the chunk ahead never waits on its own decode workers.
+    with ThreadPoolExecutor(max(1, num_workers)) as pool, \
+            ThreadPoolExecutor(1) as ahead:
+
+        def make_chunk(chunk):
+            return list(pool.map(make, chunk))
+
+        pending = None
+        for i, chunk in enumerate(chunks):
+            items = make_chunk(chunk) if pending is None \
+                else pending.result()
+            pending = (ahead.submit(make_chunk, chunks[i + 1])
+                       if i + 1 < len(chunks) else None)
+            yield items
+
+
+def image_batches(files: List[str], batch_size: int, size: int = 299,
+                  num_workers: int = 6) -> Iterator[np.ndarray]:
+    """[B, size, size, 3] float32 [0, 1] batches of ``files``, decoded and
+    resized from each file's own size (one resample, so mixed sizes batch
+    together)."""
+    for items in chunked(files, batch_size,
+                         lambda f: _decode_for_fid(f, size), num_workers):
+        yield np.stack(items)
+
+
+def statistics_of_path(path: str, activation_fn, batch_size: int = 50):
+    """(mu, sigma) of a directory of images, or of a precomputed ``.npz``
+    (keys ``mu`` and ``sigma``)."""
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            return f["mu"][:], f["sigma"][:]
+    files = list_images(path)
+    if not files:
+        raise ValueError(f"no images under {path}")
+    return compute_statistics(activation_fn, image_batches(files, batch_size))
+
+
+def calculate_fid_given_paths(paths, activation_fn,
+                              batch_size: int = 50) -> float:
+    """FID between two image directories (or ``.npz`` statistics)."""
+    m1, s1 = statistics_of_path(paths[0], activation_fn, batch_size)
+    m2, s2 = statistics_of_path(paths[1], activation_fn, batch_size)
+    return frechet_distance(m1, s1, m2, s2)
 
 
 def make_gen_activation_fn(cfg: Config, clip: ClipWithRegionHead, gen: GNet,

@@ -7,6 +7,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+# CLIP's image normalisation (datasets.py:403-406).
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of an NCHW map: every pixel becomes a

@@ -7,10 +7,11 @@ file per saved step, ``<output>/Model/state_<step>.pt``, the newest
 ``max_to_keep`` (5, as the JAX manager) kept.  A GAN state holds G, the
 EMA G and every discriminator (parameters, BN running statistics, the
 spectral-norm ``u``/``v``), both Adam states, ``step``, the epochs done,
-the noise generator's state and the data order's numpy generator state,
-and, for an epoch stopped part-way, that epoch's permutation and the
-batches done, so that a resumed run draws the same streams and takes the
-same batches as one that never stopped.
+the noise generator's state, the loader's epoch count (which orders every
+epoch), the dataset generator's state after the last batch taken (crops,
+flips and captions), and, for an epoch stopped part-way, that epoch's
+permutation and the batches done, so that a resumed run draws the same
+streams and takes the same batches as one that never stopped.
 A DAMSM state holds CLIP and its ``DamsmOptimizer`` (both Adam groups and
 ``count``, on which the one-cycle learning rates depend).
 
@@ -77,11 +78,13 @@ class CheckpointManager:
 
 
 def gan_payload(state: GanTrainState, epoch: int, noise: torch.Generator,
-                order: np.random.Generator,
+                loader_epoch: int, data_rng: Optional[Dict[str, Any]],
                 epoch_left: Optional[Tuple[np.ndarray, int]] = None
                 ) -> Dict[str, Any]:
-    """The full GAN train state after ``epoch`` epochs; ``epoch_left`` is
-    (the permutation, batches done) of an epoch stopped part-way."""
+    """The full GAN train state after ``epoch`` epochs; ``loader_epoch`` is
+    the loader's epoch count, ``data_rng`` the dataset generator's state
+    (None for a dataset without one), ``epoch_left`` (the permutation,
+    batches done) of an epoch stopped part-way."""
     perm, done = epoch_left if epoch_left is not None else (None, 0)
     return {"gen": state.gen.state_dict(),
             "gen_ema": state.gen_ema.state_dict(),
@@ -92,15 +95,15 @@ def gan_payload(state: GanTrainState, epoch: int, noise: torch.Generator,
             "epoch_order": None if perm is None else torch.from_numpy(perm),
             "batches_done": done,
             "noise": noise.get_state(),
-            "order": order.bit_generator.state}
+            "loader_epoch": loader_epoch, "data_rng": data_rng}
 
 
 def restore_gan_payload(state: GanTrainState, payload: Dict[str, Any],
-                        noise: torch.Generator, order: np.random.Generator
-                        ) -> Tuple[int, Optional[Tuple[np.ndarray, int]]]:
-    """Load :func:`gan_payload`'s ``payload`` into ``state`` and the two
-    generators, in place; returns the epochs done and the stopped epoch's
-    (permutation, batches done), or None."""
+                        noise: torch.Generator) -> Dict[str, Any]:
+    """Load :func:`gan_payload`'s ``payload`` into ``state`` and the noise
+    generator, in place; returns ``epoch`` (epochs done), ``epoch_left``
+    (the stopped epoch's permutation and batches done, or None),
+    ``loader_epoch`` and ``data_rng``."""
     if len(payload["ds"]) != len(state.ds):
         raise ValueError(f"the saved state has {len(payload['ds'])} "
                          f"discriminators, the config {len(state.ds)}")
@@ -113,11 +116,12 @@ def restore_gan_payload(state: GanTrainState, payload: Dict[str, Any],
         o.load_state_dict(sd)
     state.step = int(payload["step"])
     noise.set_state(payload["noise"])
-    order.bit_generator.state = payload["order"]
     perm = payload["epoch_order"]
-    epoch_left = None if perm is None else (perm.numpy(),
-                                            int(payload["batches_done"]))
-    return int(payload["epoch"]), epoch_left
+    return {"epoch": int(payload["epoch"]),
+            "epoch_left": None if perm is None else (
+                perm.numpy(), int(payload["batches_done"])),
+            "loader_epoch": int(payload["loader_epoch"]),
+            "data_rng": payload["data_rng"]}
 
 
 def damsm_payload(state: DamsmTrainState, epoch: int) -> Dict[str, Any]:

@@ -14,15 +14,19 @@ printed line each, validates at the end of every epoch, and writes
 ``<output_dir>/Model/clip%d.pth`` (the reference's names, which the JAX
 package's ``load_torch_clip`` and the port's GAN trainer read) and the
 full train state ``<output_dir>/Model/state_<step>.pt`` (CLIP, both Adam
-groups and the update count) every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and
-after the last.  A trainer whose ``<output_dir>/Model`` holds a full state
-resumes from the newest, as the JAX trainer restores its orbax state.
-Captions are 30 tokens a view.  The default device is ``cuda``; without a
-card this raises rather than falling back to the CPU.
+groups, the update count, both loaders' epochs and their datasets'
+generators) every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last.
+A trainer whose ``<output_dir>/Model`` holds a full state resumes from the
+newest, as the JAX trainer restores its orbax state.  Captions are 30
+tokens a view.  The default device is ``cuda``; without a card this raises
+rather than falling back to the CPU.
 
-Not here yet: the real datasets (without ``DATA_DIR/<split>`` on disk both
-splits are the synthetic dataset, as in the JAX package) and the attention
-figure.
+Data: ``DATA_DIR/train`` and ``DATA_DIR/val`` on disk are read as the
+reference's datasets (:class:`t2igan_torch.data.dataset.TextImageDataset`,
+the finest pyramid branch at ``TREE.BASE_SIZE``), through
+:class:`t2igan_torch.data.pipeline.DataLoader` with ``WORKERS`` workers and
+``DATA_ENGINE``; a split that is not on disk is the synthetic dataset, as
+in the JAX package.  Not here yet: the attention figure.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
-import numpy as np
 import torch
 
 from t2igan_torch.config import Config, cfg_from_file, cfg_replace
+from t2igan_torch.data.dataset import TextImageDataset
+from t2igan_torch.data.pipeline import (DataLoader, prefetch_to_device,
+                                        put_batch)
 from t2igan_torch.data.synthetic import SyntheticDataset
 from t2igan_torch.data.tokenizer import ClipTokenizer
 from t2igan_torch.models.clip import ClipConfig
@@ -53,53 +59,38 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 DAMSM_WORDS_NUM = 30
 
 
-def make_dataset(cfg: Config, split: str) -> SyntheticDataset:
-    """The synthetic dataset of ``max(2 * TRAIN.BATCH_SIZE, 64)`` records
-    when ``DATA_DIR/<split>`` is not on disk; the port has no reader for
-    the real datasets yet, so it raises when one is."""
+def make_dataset(cfg: Config, split: str
+                 ) -> Union[TextImageDataset, SyntheticDataset]:
+    """The reference's dataset when ``DATA_DIR/<split>`` is on disk, else
+    the synthetic dataset of ``max(2 * TRAIN.BATCH_SIZE, 64)`` records (so
+    smoke runs work without CUB or COCO), as the JAX package chooses."""
     split_dir = os.path.join(cfg.DATA_DIR, split)
     if cfg.DATA_DIR and os.path.isdir(split_dir):
-        raise NotImplementedError(
-            f"{split_dir!r} exists, but the port has no reader for the real "
-            f"datasets yet (ROADMAP.md, Queue 1)")
+        return TextImageDataset(cfg, split)
     print(f"WARNING: dataset split {split_dir!r} not found; "
           "using synthetic data.")
     return SyntheticDataset(cfg, size=max(2 * cfg.TRAIN.BATCH_SIZE, 64))
 
 
-class CaptionBatches:
-    """Shuffled, drop-last batches of the finest image and both caption
-    views tokenised to ``words_num``; epoch e is ordered by
-    ``numpy.random.default_rng((seed, e))``, as the JAX package's loader."""
+def make_loader(cfg: Config, dataset, tokenizer: ClipTokenizer,
+                words_num: int, shuffle: bool, device: torch.device
+                ) -> DataLoader:
+    """The JAX trainers' loader: ``TRAIN.BATCH_SIZE``, ``max(1, WORKERS)``
+    workers, ``DATA_ENGINE``; images in pinned memory for a card."""
+    return DataLoader(dataset, tokenizer, cfg.TRAIN.BATCH_SIZE, words_num,
+                      shuffle=shuffle, num_workers=max(1, cfg.WORKERS),
+                      engine=cfg.DATA_ENGINE,
+                      pin_memory=device.type == "cuda")
 
-    def __init__(self, dataset: SyntheticDataset, tokenizer: ClipTokenizer,
-                 batch_size: int, words_num: int, seed: int = 0):
-        self.dataset = dataset
-        self.tokenizer = tokenizer
-        self.batch_size = batch_size
-        self.words_num = words_num
-        self.seed = seed
-        self.epoch = 0
 
-    def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+def data_rng_state(dataset):
+    rng = getattr(dataset, "rng", None)
+    return None if rng is None else rng.bit_generator.state
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        idx = np.arange(len(self.dataset))
-        np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
-        self.epoch += 1
-        b = self.batch_size
-        for start in range(0, len(self) * b, b):
-            recs = [self.dataset[int(i)] for i in idx[start:start + b]]
-            tok1 = self.tokenizer([r.caption for r in recs], self.words_num)
-            tok2 = self.tokenizer([r.caption_2 for r in recs],
-                                  self.words_num)
-            yield {"images": np.stack([r.images[-1] for r in recs]),
-                   "ids": tok1["input_ids"], "mask": tok1["attention_mask"],
-                   "ids_2": tok2["input_ids"],
-                   "mask_2": tok2["attention_mask"],
-                   "class_ids": np.asarray([r.class_id for r in recs],
-                                           np.int32)}
+
+def set_data_rng_state(dataset, state) -> None:
+    if state is not None:
+        dataset.rng.bit_generator.state = state
 
 
 class DamsmTrainer:
@@ -119,13 +110,12 @@ class DamsmTrainer:
                                "cpu to run on the CPU")
         self.cfg = cfg
         self.output_dir = output_dir
+        self.device = dev
         os.makedirs(output_dir, exist_ok=True)
         tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
-        b = cfg.TRAIN.BATCH_SIZE
-        self.train_batches = CaptionBatches(make_dataset(cfg, "train"),
-                                            tokenizer, b, words_num)
-        self.val_batches = CaptionBatches(make_dataset(cfg, "val"),
-                                          tokenizer, b, words_num)
+        self.train_batches, self.val_batches = (
+            make_loader(cfg, make_dataset(cfg, split), tokenizer, words_num,
+                        True, dev) for split in ("train", "val"))
         rng = torch.Generator().manual_seed(seed)
         clip = load_clip(cfg, clip_cfg, rng).to(dev)
         self.tx = damsm_optimizer(cfg, steps_per_epoch=len(self.train_batches))
@@ -139,6 +129,10 @@ class DamsmTrainer:
             self.epoch = restore_damsm_payload(self.state, payload)
             self.train_batches.epoch = payload["train_order"]
             self.val_batches.epoch = payload["val_order"]
+            set_data_rng_state(self.train_batches.dataset,
+                               payload.get("train_rng"))
+            set_data_rng_state(self.val_batches.dataset,
+                               payload.get("val_rng"))
             print(f"Resumed DAMSM state from step {step} ({self.epoch} "
                   f"epochs done)")
 
@@ -156,15 +150,7 @@ class DamsmTrainer:
         metrics: Dict[str, float] = {}
         for epoch in range(self.epoch, epochs):
             start = time.perf_counter()
-            for i, batch in enumerate(self.train_batches):
-                t0 = time.perf_counter()
-                out = self.step_fn(batch)
-                metrics = {k: float(v) for k, v in out.items()}
-                print(f"| epoch {epoch:3d} | {i + 1:4d}/"
-                      f"{len(self.train_batches):4d} batches | step "
-                      f"{self.state.step} | "
-                      + " ".join(f"{k} {v:.4f}" for k, v in metrics.items())
-                      + f" | {time.perf_counter() - t0:.2f}s", flush=True)
+            metrics = self.train_epoch(epoch) or metrics
             val = self.evaluate()
             print(f"| end epoch {epoch:3d} | valid s_loss {val['s_loss']:5.2f}"
                   f" w_loss {val['w_loss']:5.2f} |"
@@ -176,8 +162,32 @@ class DamsmTrainer:
                 self.ckpt.save(self.state.step, dict(
                     damsm_payload(self.state, self.epoch),
                     train_order=self.train_batches.epoch,
-                    val_order=self.val_batches.epoch))
+                    val_order=self.val_batches.epoch,
+                    train_rng=data_rng_state(self.train_batches.dataset),
+                    val_rng=data_rng_state(self.val_batches.dataset)))
         return metrics
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One step per batch of the loader's next epoch, one printed line
+        each (``epoch`` labels them); returns the last step's metrics."""
+        metrics: Dict[str, float] = {}
+        for i, batch in enumerate(prefetch_to_device(
+                (b.arrays(finest_only=True) for b in self.train_batches),
+                self.device)):
+            t0 = time.perf_counter()
+            out = self.step_fn(batch)
+            metrics = {k: float(v) for k, v in out.items()}
+            print(f"| epoch {epoch:3d} | {i + 1:4d}/"
+                  f"{len(self.train_batches):4d} batches | step "
+                  f"{self.state.step} | "
+                  + " ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+                  + f" | {time.perf_counter() - t0:.2f}s", flush=True)
+        return metrics
+
+    def device_batch(self, batch) -> Dict:
+        """A loader batch as the DAMSM step's: the finest images, both
+        caption views and the class ids, on the trainer's device."""
+        return put_batch(batch.arrays(finest_only=True), self.device)
 
     def evaluate(self, max_batches: Optional[int] = None) -> Dict[str, float]:
         """Mean ``s_loss`` and ``w_loss`` over the validation split, capped
@@ -190,7 +200,7 @@ class DamsmTrainer:
             for i, batch in enumerate(self.val_batches):
                 if max_batches is not None and i >= max_batches:
                     break
-                _, m = self.eval_loss_fn(batch)
+                _, m = self.eval_loss_fn(self.device_batch(batch))
                 s_total += float(m["s_loss"])
                 w_total += float(m["w_loss"])
                 n += 1

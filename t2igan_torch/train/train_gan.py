@@ -12,8 +12,12 @@ checkpoints, ``B_VALIDATION`` sampling, ``gen_example``).
 The trainer builds CLIP (from ``TRAIN.CLIP_MODEL_CHECKPOINT`` when that
 names an existing ``clip%d.pth``), the generator and one discriminator per
 pyramid size with random weights from ``seed``, and the data of ``split``
-(:func:`t2igan_torch.train.pretrain_damsm.make_dataset`: the JAX package's
-records).  CLIP stays frozen.  ``TRAIN.NET_G`` resumes it:
+(:func:`t2igan_torch.train.pretrain_damsm.make_dataset`: the reference's
+dataset under ``DATA_DIR``, else the synthetic one) behind the JAX
+trainer's loader (:class:`t2igan_torch.data.pipeline.DataLoader`: shuffled
+when ``TRAIN.FLAG``, ``WORKERS`` workers, ``DATA_ENGINE``), whose batches
+reach the card from pinned memory ahead of the step.  CLIP stays frozen.
+``TRAIN.NET_G`` resumes it:
 
 * a ``.npz`` (the JAX package's generator export) or a
   ``netG_epoch_%d.pth`` sets G and its EMA to the file's weights (as
@@ -38,17 +42,17 @@ from __future__ import annotations
 
 import argparse
 import copy
-import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
-                    Tuple)
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
 
 from t2igan_torch.config import Config, cfg_from_file, cfg_replace
+from t2igan_torch.data.pipeline import Batch, prefetch_to_device
 from t2igan_torch.data.tokenizer import ClipTokenizer
 from t2igan_torch.generate import sample_and_write
 from t2igan_torch.evaluation.rprecision import (MisCaptionBank,
@@ -68,7 +72,9 @@ from t2igan_torch.train.checkpoint import (CheckpointManager,
                                            parse_epoch_from_path,
                                            restore_gan_payload)
 from t2igan_torch.train.export import load_generator_weights
-from t2igan_torch.train.pretrain_damsm import make_dataset
+from t2igan_torch.train.pretrain_damsm import (data_rng_state, make_dataset,
+                                               make_loader,
+                                               set_data_rng_state)
 from t2igan_torch.train.state import init_gan_state
 from t2igan_torch.train.steps import make_gan_step, make_sampler
 from t2igan_torch.utils.png import write_png
@@ -102,8 +108,11 @@ class CondGanTrainer:
         self.cfg = cfg
         self.dtype = dtype
         self.output_dir = output_dir
+        self.device = dev
         self.tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
         self.dataset = make_dataset(cfg, split)
+        self.loader = make_loader(cfg, self.dataset, self.tokenizer,
+                                  cfg.TEXT.WORDS_NUM, cfg.TRAIN.FLAG, dev)
         rng = torch.Generator().manual_seed(seed)
         self.clip = load_clip(cfg, clip_cfg, rng).requires_grad_(False).to(
             dev)
@@ -115,10 +124,11 @@ class CondGanTrainer:
         self.state = init_gan_state(cfg, gen, ds)
         self.step_fn = make_gan_step(cfg, self.clip, dtype)
         self.noise = torch.Generator(device=dev).manual_seed(seed + 1)
-        self.order = np.random.default_rng(seed)
         self.epoch = 0  # epochs done: train() goes on from here
         # (permutation, batches done) of an epoch stopped part-way.
         self._epoch_left: Optional[Tuple[np.ndarray, int]] = None
+        # The dataset generator's state after the last batch trained on.
+        self._data_rng = data_rng_state(self.dataset)
         self._eval_clip = self._eval_gen = None
         self._mis_bank: Optional[MisCaptionBank] = None
         self._resume()
@@ -147,8 +157,12 @@ class CondGanTrainer:
         if resume_dir and os.path.isdir(resume_dir):
             payload, step = CheckpointManager(resume_dir).restore()
             if payload is not None:
-                self.epoch, self._epoch_left = restore_gan_payload(
-                    state, payload, self.noise, self.order)
+                saved = restore_gan_payload(state, payload, self.noise)
+                self.epoch, self._epoch_left = saved["epoch"], \
+                    saved["epoch_left"]
+                self.loader.epoch = saved["loader_epoch"]
+                self._data_rng = saved["data_rng"]
+                set_data_rng_state(self.dataset, self._data_rng)
                 print(f"Resumed GAN state from step {step} ({self.epoch} "
                       f"epochs done) in {resume_dir}")
                 return
@@ -158,46 +172,19 @@ class CondGanTrainer:
 
     # -------------------------------------------------------------- data --
 
-    def collate(self, index: Sequence[int], with_images: bool = True
-                ) -> Dict:
-        """The records at ``index`` as one batch: both caption views
-        tokenized to ``TEXT.WORDS_NUM``, class ids, keys and (with
-        ``with_images``) the image pyramid."""
-        recs = [self.dataset[int(i)] for i in index]
-        words = self.cfg.TEXT.WORDS_NUM
-        tok1 = self.tokenizer([r.caption for r in recs], words)
-        tok2 = self.tokenizer([r.caption_2 for r in recs], words)
-        batch = {"ids": tok1["input_ids"], "mask": tok1["attention_mask"],
-                 "ids_2": tok2["input_ids"],
-                 "mask_2": tok2["attention_mask"],
-                 "class_ids": np.asarray([r.class_id for r in recs],
-                                         np.int32),
-                 "keys": [r.key for r in recs]}
-        if with_images:
-            batch["images"] = [np.stack([r.images[k] for r in recs])
-                               for k in range(len(recs[0].images))]
-        return batch
+    def device_batches(self, batches: Iterator[Batch]
+                       ) -> Iterator[Dict[str, Any]]:
+        """Loader batches as the train step's dicts on the trainer's
+        device, two ahead of the step; each keeps its batch's dataset
+        generator state under ``rng_state``."""
+        return prefetch_to_device(
+            (dict(b.arrays(), rng_state=b.rng_state) for b in batches),
+            self.device)
 
-    def _index_batches(self, order: np.ndarray) -> Iterator[np.ndarray]:
-        """``TRAIN.BATCH_SIZE`` indices at a time; a last partial batch is
-        dropped, as the JAX ``DataLoader``'s ``drop_last``."""
-        b = self.cfg.TRAIN.BATCH_SIZE
-        for start in range(0, len(order) - b + 1, b):
-            yield order[start:start + b]
-
-    def batches(self) -> Iterator[Dict]:
-        """Shuffled batches, epoch after epoch, each epoch in the order of
-        the next permutation drawn from ``self.order``."""
+    def batches(self) -> Iterator[Dict[str, Any]]:
+        """The loader's batches on the device, epoch after epoch."""
         while True:
-            for idx in self._index_batches(self.order.permutation(
-                    len(self.dataset))):
-                yield self.collate(idx)
-
-    def eval_batches(self) -> Iterator[Dict]:
-        """Batches in dataset order without the image pyramid (the
-        sweep's)."""
-        for idx in self._index_batches(np.arange(len(self.dataset))):
-            yield self.collate(idx, with_images=False)
+            yield from self.device_batches(iter(self.loader))
 
     def _out(self, *parts: str) -> str:
         if self.output_dir is None:
@@ -214,8 +201,9 @@ class CondGanTrainer:
         batches = self.batches()
         for _ in range(steps):
             t0 = time.perf_counter()
-            out = self.step_fn(self.state, next(batches),
-                               generator=self.noise)
+            batch = next(batches)
+            out = self.step_fn(self.state, batch, generator=self.noise)
+            self._data_rng = batch["rng_state"]
             metrics = {k: float(v) for k, v in out.items()}
             print(f"[{self.state.step}] Loss_D: {self._d_loss(metrics):.4f} "
                   f"Loss_G: {metrics['g_loss']:.4f} "
@@ -243,14 +231,15 @@ class CondGanTrainer:
         try:
             for epoch in range(self.epoch, epochs):
                 start = time.perf_counter()
-                perm, done = self._epoch_left or (
-                    self.order.permutation(len(self.dataset)), 0)
+                perm, done = self._epoch_left or (self.loader.next_order(),
+                                                  0)
                 self._epoch_left = None
                 out = {}
-                for i, idx in enumerate(itertools.islice(
-                        self._index_batches(perm), done, None), done):
-                    out = self.step_fn(self.state, self.collate(idx),
+                for i, batch in enumerate(self.device_batches(
+                        self.loader.batches(perm, done)), done):
+                    out = self.step_fn(self.state, batch,
                                        generator=self.noise)
+                    self._data_rng = batch["rng_state"]
                     if stop.requested:
                         self._epoch_left = (perm, i + 1)
                         break
@@ -277,7 +266,8 @@ class CondGanTrainer:
         path."""
         return CheckpointManager(self._out("Model")).save(
             self.state.step, gan_payload(self.state, self.epoch, self.noise,
-                                         self.order, self._epoch_left))
+                                         self.loader.epoch, self._data_rng,
+                                         self._epoch_left))
 
     def snapshot(self, epoch: int) -> None:
         """The full state, ``netG_epoch_<epoch>.pth``, ``netD%d.pth`` and
@@ -291,17 +281,20 @@ class CondGanTrainer:
         self._save_sample_grid(epoch)
 
     def _save_sample_grid(self, tag) -> None:
-        """The finest images of the EMA G on the first ``BATCH_SIZE``
-        records in dataset order (view-1 captions), with fixed noise
-        (``z`` from a generator seeded 42, zero ``eps``), as one sheet
-        ``Image/G_<tag>.png``."""
-        n = min(self.cfg.TRAIN.BATCH_SIZE, len(self.dataset))
-        batch = self.collate(range(n), with_images=False)
+        """The finest images of the EMA G on the loader's probe batch
+        (``peek``: the first ``BATCH_SIZE`` records in dataset order, their
+        first captions; no pixel is read and no stream moves), with fixed
+        noise (``z`` from a generator seeded 42, zero ``eps``), as one
+        sheet ``Image/G_<tag>.png``."""
+        batch = self.loader.peek(with_images=False)
+        if batch is None:
+            return
+        n = len(batch.keys)
         z = torch.randn((n, self.cfg.GAN.Z_DIM),
                         generator=torch.Generator().manual_seed(42))
         eps = torch.zeros((n, self.cfg.GAN.CONDITION_DIM))
         fakes = make_sampler(self.cfg, *self.eval_models())(
-            batch["ids"], batch["mask"], z, eps)
+            batch.input_ids, batch.attention_mask, z, eps)
         save_image_grid(tanh_to01(fakes[-1].float().cpu().numpy()),
                         self._out("Image", f"G_{tag}.png"))
 
@@ -343,8 +336,10 @@ class CondGanTrainer:
                  use_ema: bool = True, n_mis: int = 99,
                  noise: Optional[NoiseFn] = None) -> Tuple[float, float]:
         """The generation + R-precision sweep: ``num_rounds`` passes over
-        the split's batches in dataset order (a last partial batch
-        dropped).  Each batch is sampled with ``z`` and ``eps`` from
+        the loader's batches (an epoch each, in its order, a last partial
+        batch dropped), their captions drawn as iterating the loader draws
+        them, without reading pixels.  Each batch is sampled with ``z`` and
+        ``eps`` from
         ``noise(b)`` (default: a generator seeded 100, ``z`` then ``eps``),
         its finest images are written as
         ``<output_dir>/<split_dir>/single/<key>_<round>.png`` (truncating
@@ -371,23 +366,23 @@ class CondGanTrainer:
         # PNG encodes run on IO threads; leaving the block joins them.
         with ThreadPoolExecutor(4) as io_pool:
             for round_i in range(num_rounds):
-                for batch in self.eval_batches():
-                    b = len(batch["keys"])
+                for batch in self.loader.caption_batches():
+                    b = len(batch.keys)
                     z, eps = noise(b)
-                    finest = sampler(batch["ids"], batch["mask"], z, eps)[-1]
+                    finest = sampler(batch.input_ids, batch.attention_mask,
+                                     z, eps)[-1]
                     if save_images:
                         u8 = uint8_from_tanh(finest).cpu().numpy()
-                        for j, key in enumerate(batch["keys"]):
+                        for j, key in enumerate(batch.keys):
                             io_pool.submit(write_png, os.path.join(
                                 save_dir, f"{key}_{round_i}.png"), u8[j])
-                    mis_ids, mis_mask = bank.sample(batch["class_ids"],
-                                                    n_mis)
+                    mis_ids, mis_mask = bank.sample(batch.class_ids, n_mis)
                     # A whole batch, so the resized images start aligned
                     # for the bf16 kernels (ROADMAP F11).
                     resized = resize_nearest(
                         finest, clip.cfg.image_size).contiguous()
-                    flags, _ = rank(resized, batch["ids"], batch["mask"],
-                                    mis_ids, mis_mask)
+                    flags, _ = rank(resized, batch.input_ids,
+                                    batch.attention_mask, mis_ids, mis_mask)
                     hits.extend(flags.cpu().tolist())
                     if len(hits) >= r_target:
                         mean, std = bootstrap_r_precision(np.asarray(hits))

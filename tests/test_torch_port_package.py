@@ -215,3 +215,18 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_import_guard_covers_every_module_of_the_data_slice():
+    """The modules the real-data slice added (the decoder's bindings, the
+    dataset, its loader, FID/IS from directories and their CLIs), and the
+    host library's C++ sources beside the CUDA ones."""
+    from t2igan_torch.data import native
+
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"data/native.py", "data/dataset.py", "data/clip_dataset.py",
+            "data/pipeline.py", "data/cub_tree.py",
+            "evaluation/inception_score.py", "fid_score.py",
+            "inception_score.py"} <= sources
+    for name in native.SOURCES + native.HEADERS:
+        assert (native.CSRC_DIR / name).is_file()
