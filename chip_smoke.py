@@ -50,14 +50,19 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    against its one-cycle schedule at every step, no K1, K2 or K3 launch,
    ``clip0.pth``/``clip1.pth``, bitwise-equal encodings from
    ``clip1.pth`` read into a fresh module, and ``CondGanTrainer`` holding
-   exactly those weights through ``TRAIN.CLIP_MODEL_CHECKPOINT``;
+   exactly those weights through ``TRAIN.CLIP_MODEL_CHECKPOINT``, the
+   attention figures ``attn_epoch%d.png`` and ``metrics.jsonl`` (one row a
+   step, the JAX trainer's keys);
 4c. holds one f32 DAMSM step on the card to the CPU at batch 4 (metrics
    and every gradient), then both optimizers fed the same gradients;
 6. (run before phase 5's timings) drives the train -> checkpoint ->
    evaluate loop: ``CondGanTrainer.train`` at the full width of
    ``configs/clip_bird_dmgan.yml``, 2 epochs in bf16 at batch 4 with a
    snapshot after each (full state, ``netG_epoch_%d.pth``,
-   ``netD%d.pth``, the sample sheet; 4 K1, 4 K2, 0 K3 launches a step), a
+   ``netD%d.pth``, the sample sheet and its attention figure
+   ``G_%d_attn.png``; 4 K1, 4 K2, 0 K3 launches a step, none for a sheet,
+   whose maps read through einsums), ``metrics.jsonl`` (one row a step,
+   the JAX trainer's keys), a
    fresh trainer resuming bitwise, ``netG_epoch_1.pth`` in a fresh GNet
    giving the bitwise f32 sampler output, ``sampling()`` from it at the
    widths of ``eval_clip_bird.yml`` (batch 10, one round, both tails: 2
@@ -89,6 +94,18 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    tree's test captions writing PNGs, then ``python -m
    t2igan_torch.fid_score`` and ``python -m t2igan_torch.inception_score``
    on the card (random Inception weights).
+
+8. (after phase 7) the rest of the model surface: ``GAN.B_DCGAN`` at the
+   widths of eval_clip_bird.yml (a seeded GDCGan's ``G_DCGAN``
+   ``netG_epoch_0.pth`` read back through ``TRAIN.NET_G``; the f32
+   sampler on the card against the CPU within 1e-4 and the bf16 gap;
+   ``sampling()`` one round in both tail settings, 2 K1 and 2 or 0 K3
+   launches per sampler call; the sampler timed at batch 128 in bf16,
+   both tails); the attention grid of the committed fixture against the
+   sha256 of the JAX package's PIL grid and ``gen_example``'s
+   ``<s>_a<k>.png``; the legacy encoders (RnnEncoder LSTM and GRU,
+   CnnEncoder, GlobalAttentionText) at the reference's widths, card
+   against CPU, timed.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the process
@@ -1073,6 +1090,17 @@ def drive_damsm_path():
         paths = [trainer.checkpoint_path(e) for e in (0, 1)]
         if not all(os.path.isfile(p) for p in paths):
             raise AssertionError(f"missing checkpoints {paths}")
+        figures = sorted(os.listdir(os.path.join(tmp, "Image")))
+        rows = metrics_rows(tmp)
+        keys = METRICS_KEYS | {"loss", "w_loss", "s_loss", "contrastive",
+                               "grad_norm"}
+        ok = figures == ["attn_epoch0.png", "attn_epoch1.png"] and \
+            [r["step"] for r in rows] == list(range(1, steps + 1)) and \
+            all(set(r) == keys for r in rows[1:])
+        print(f"damsm path: figures {figures}; metrics.jsonl {len(rows)} "
+              f"rows with keys {sorted(keys)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("DAMSM figures or metrics.jsonl")
         fresh = load_clip_pth(build_clip(), paths[1]).to("cuda")
         batch = next(iter(trainer.val_batches)).arrays(finest_only=True)
         clip.eval()
@@ -1172,11 +1200,14 @@ def drive_checkpoint_loop(card):
         per_step = []
         step_fn = trainer.step_fn
 
+        per_step_metrics = []
+
         def counted(*args, **kwargs):
             before = dict(LAUNCHES)
             metrics = step_fn(*args, **kwargs)
             per_step.append({k: LAUNCHES[k] - before.get(k, 0)
                              for k in LAUNCHES})
+            per_step_metrics.append(metrics)
             return metrics
 
         trainer.step_fn = counted
@@ -1199,18 +1230,33 @@ def drive_checkpoint_loop(card):
                                 "netG_epoch_0.pth", "netG_epoch_1.pth",
                                 f"state_{steps // 2:08d}.pt",
                                 f"state_{steps:08d}.pt"],
-                      "Image": ["G_0.png", "G_1.png"]}
+                      "Image": ["G_0.png", "G_0_attn.png", "G_1.png",
+                                "G_1_attn.png"]}
         if files != want_files:
             raise AssertionError(f"snapshot files {files}, expected "
                                  f"{want_files}")
+        rows = metrics_rows(out)
+        keys = METRICS_KEYS | set(per_step_metrics[0])
+        ok = [r["step"] for r in rows] == list(range(1, steps + 1)) and \
+            all(set(r) == keys for r in rows[1:]) and \
+            set(rows[0]) == keys - {"sec_per_step"}
+        print(f"checkpoint loop: metrics.jsonl {len(rows)} rows (one a "
+              f"step), keys {sorted(keys)}; last row "
+              + ", ".join(f"{k} {rows[-1][k]:.4f}" for k in sorted(keys)
+                          if k not in ("step", "prefix", "time"))
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("metrics.jsonl rows or keys")
         if len(per_step) != steps or any(
                 c.get("memory_read_fwd") != 4 or c.get("memory_read_bwd") != 4
                 or c.get("reschain", 0) != 0 for c in per_step):
             raise AssertionError("expected 4 memory_read_fwd, 4 "
                                  "memory_read_bwd and 0 reschain launches "
                                  f"per train step, got {per_step}")
-        # Each sample sheet is one sampler call: 2 K1 launches.
-        if total.get("memory_read_fwd") != 4 * steps + 2 * 2 or \
+        # Each sample sheet is one sampler call that returns the attention
+        # maps, so its memory read runs as einsums (no K1), as the JAX
+        # trainer's does.
+        if total.get("memory_read_fwd") != 4 * steps or \
                 total.get("memory_read_bwd") != 4 * steps:
             raise AssertionError(f"launches over the run {total}")
         if not all(math.isfinite(v) for v in metrics.values()):
@@ -2134,6 +2180,271 @@ def drive_real_data(card, train_ms, damsm_ms):
 
 
 
+# ------------------------------------------------------------- phase 8 ----
+
+METRICS_KEYS = {"step", "time", "prefix", "images_per_sec", "sec_per_step"}
+
+
+def metrics_rows(out_dir):
+    """The rows of ``<out_dir>/metrics.jsonl``."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def dcgan_cfg(fused: bool, net_g: str = ""):
+    """eval_clip_bird.yml with GAN.B_DCGAN (GDCGan: GF 64, R 2, three
+    branches, one 256 px image)."""
+    from t2igan_torch.config import cfg_replace
+
+    return cfg_replace(fused_cfg(fused), GAN={"B_DCGAN": True},
+                       TRAIN={"NET_G": net_g})
+
+
+def drive_dcgan(card):
+    """Phase 8a: GAN.B_DCGAN at the widths of eval_clip_bird.yml.  A
+    seeded GDCGan saved with save_generator_pth (a G_DCGAN file) and read
+    back through TRAIN.NET_G bitwise; the f32 sampler from that file on
+    the card against the CPU (batch 2, TF32 off) and the bf16-vs-f32 gap;
+    sampling() one round at the YAML's batch of 10 in both tail settings
+    (2 K1 and 2 or 0 K3 launches per sampler call, one PNG per record, R
+    in [0, 1]); the sampler timed at batch 128 in bf16 in both tails."""
+    import tempfile
+
+    import torch
+
+    from t2igan_torch.data.tokenizer import ClipTokenizer
+    from t2igan_torch.generate import build_models
+    from t2igan_torch.models.convert import save_generator_pth
+    from t2igan_torch.models.factory import build_generator
+    from t2igan_torch.models.generator import GDCGan, init_generator_
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.steps import make_sampler
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        src = init_generator_(build_generator(dcgan_cfg(False)),
+                              torch.Generator().manual_seed(21))
+        if not isinstance(src, GDCGan):
+            raise AssertionError("GAN.B_DCGAN did not build a GDCGan")
+        path = os.path.join(out, "netG_epoch_0.pth")
+        save_generator_pth(src, path)
+
+        cfg = dcgan_cfg(False, path)
+        tok = ClipTokenizer.load()(CAPTIONS[:2],
+                                   max_length=cfg.TEXT.WORDS_NUM)
+        noise = torch.Generator().manual_seed(22)
+        z = torch.randn((2, cfg.GAN.Z_DIM), generator=noise)
+        eps = torch.randn((2, cfg.GAN.CONDITION_DIM), generator=noise)
+        runs = {}
+        for device, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
+                              ("cuda", torch.bfloat16)):
+            clip, gen = build_models(cfg, 0, torch.device(device), dtype,
+                                     weights=path)
+            runs[device, dtype] = [f.float().cpu() for f in make_sampler(
+                cfg, clip, gen)(tok["input_ids"], tok["attention_mask"], z,
+                                eps)]
+            del clip, gen
+        if [tuple(f.shape) for f in runs["cuda", torch.float32]] != \
+                [(2, 256, 256, 3)]:
+            raise AssertionError("GDCGan sampler image shapes")
+        # Bound 1e-4 on images in [-1, 1]: f32 throughout (TF32 off), the
+        # card's K1 and cuDNN against the CPU's plain read and convs.
+        bound = 1e-4
+        gap = (runs["cuda", torch.float32][0]
+               - runs["cpu", torch.float32][0]).abs().max().item()
+        bf16_gap = (runs["cuda", torch.bfloat16][0]
+                    - runs["cuda", torch.float32][0]).abs().max().item()
+        print(f"dcgan: GDCGan (eval_clip_bird.yml widths, B_DCGAN) from a "
+              f"G_DCGAN netG_epoch_0.pth, f32 sampler card vs CPU, batch 2: "
+              f"max_abs_diff={gap:.3e} bound={bound:.0e} "
+              f"{'ok' if gap <= bound else 'FAIL'}; bf16 vs f32 on the card "
+              f"max_abs_diff={bf16_gap:.3e}")
+        if not gap <= bound:
+            raise AssertionError("GDCGan f32 sampler on the card disagrees "
+                                 "with the CPU")
+
+        for fused in (False, True):
+            label = "fused tail" if fused else "plain tail"
+            ev = CondGanTrainer(dcgan_cfg(fused, path), "cuda",
+                                torch.bfloat16, seed=100,
+                                output_dir=os.path.join(out, label),
+                                split="test")
+            held = all(torch.equal(a.cpu(), b) for a, b in zip(
+                ev.state.gen_ema.state_dict().values(),
+                src.state_dict().values()))
+            b = ev.cfg.TRAIN.BATCH_SIZE
+            calls = len(ev.dataset) // b
+            for name in list(LAUNCHES):
+                LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            mean, std = ev.sampling("valid", num_rounds=1)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            single = os.path.join(out, label, "valid", "single")
+            pngs = sum(len(f) for _, _, f in os.walk(single))
+            want = {"memory_read_fwd": 2 * calls,
+                    "reschain": 2 * calls if fused else 0,
+                    "memory_read_bwd": 0}
+            ok = (held and all(counts.get(k, 0) == v for k, v in want.items())
+                  and pngs == calls * b and 0.0 <= mean <= 1.0)
+            print(f"dcgan: sampling() {label}, TRAIN.NET_G = the G_DCGAN "
+                  f"file (weights held bitwise {held}), batch {b}, bf16, 1 "
+                  f"round of {calls} batches in {seconds:.2f} s: R mean "
+                  f"{mean:.4f} std {std:.4f}, {pngs} PNGs, launches {counts} "
+                  f"(want {want}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("GDCGan sweep: weights, launch counts, "
+                                     "PNGs or R wrong")
+            del ev
+
+    for fused in (False, True):
+        cfg = dcgan_cfg(fused)
+        clip, gen = build_models(cfg, 0, torch.device("cuda"),
+                                 torch.bfloat16)
+        args = bench_inputs(cfg, TIMED_BATCH, clip.cfg.eos_token_id)
+        sampler = make_sampler(cfg, clip, gen)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: sampler(*args), iters=10)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{card}] GDCGan sampler {'fused' if fused else 'plain'} "
+              f"tail bf16 batch {TIMED_BATCH}: {ms:.3f} ms/batch, "
+              f"{TIMED_BATCH * 1000.0 / ms:.1f} images/s, peak memory "
+              f"{peak:.2f} GiB")
+        del clip, gen, sampler
+
+
+def check_figures():
+    """Phase 8b: the port's attention_grid on the committed fixture gives
+    the sha256 of the JAX package's PIL grid recorded beside it (this
+    machine has no PIL: its one check of the labels); gen_example at the
+    widths of eval_clip_bird.yml writes the JAX file names, each stage's
+    images and the <s>_a<k>.png grids, read back by the port's decoder."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict
+    from t2igan_torch.configs import EVAL_CLIP_BIRD
+    from t2igan_torch.data.native import decode_image
+    from t2igan_torch.train.train_gan import CondGanTrainer
+    from t2igan_torch.utils.viz import attention_grid
+
+    testdata = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "t2igan_torch", "testdata")
+    with open(os.path.join(testdata, "fixtures.json")) as f:
+        record = json.load(f)["attention_grid"]
+    with np.load(os.path.join(testdata, record["file"])) as f:
+        images, attn = f["images_u8"].astype(np.float32) / 255.0, f["attn"]
+    t0 = time.perf_counter()
+    grid = attention_grid(images, attn, record["labels"])
+    seconds = time.perf_counter() - t0
+    sha = hashlib.sha256(grid.tobytes()).hexdigest()
+    ok = sha == record["sha256_grid"] and list(grid.shape) == record["shape"]
+    print(f"figures: attention_grid of the committed fixture "
+          f"{tuple(grid.shape)} in {seconds * 1e3:.1f} ms, sha256 "
+          f"{sha[:16]}... equal to PIL's {ok}")
+    if not ok:
+        raise AssertionError("attention_grid differs from the JAX/PIL grid")
+
+    captions = CAPTIONS[:3]
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        ev = CondGanTrainer(cfg_from_dict(EVAL_CLIP_BIRD), "cuda",
+                            torch.bfloat16, seed=100, output_dir=out,
+                            split="test")
+        t0 = time.perf_counter()
+        ev.gen_example({"demo": captions})
+        seconds = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join(out, "demo")))
+        want = sorted([f"0_s_{j}_g{k}.png" for j in range(len(captions))
+                       for k in range(3)] + ["0_a0.png", "0_a1.png"])
+        shapes = {n: decode_image(os.path.join(out, "demo", n)).shape
+                  for n in ("0_s_0_g2.png", "0_a1.png")}
+        ok = names == want and shapes == {
+            "0_s_0_g2.png": (256, 256, 3),
+            "0_a1.png": (len(captions) * 110, 9 * 96, 3)}
+        print(f"figures: gen_example (eval_clip_bird.yml widths, bf16, "
+              f"{len(captions)} captions) in {seconds:.2f} s wrote {names}; "
+              f"shapes {shapes} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("gen_example files")
+        del ev
+
+
+def check_legacy_encoders(card):
+    """Phase 8d: the legacy encoders at the reference's widths, f32 (TF32
+    off), card against CPU within the CPU tests' bounds, each timed:
+    RnnEncoder LSTM and GRU (CUB's 5450 words, 300 inputs, 256 hidden,
+    T = 18, ragged lengths 0..18, batch 16; 1e-5), CnnEncoder (299 px, nef
+    256, random Inception weights, batch 4; 1e-4) and GlobalAttentionText
+    (idf 256 over 17x17 regions, 18 words of 256, padded words; 1e-5)."""
+    import copy
+
+    import torch
+
+    from t2igan_torch.models.inception import init_inception_
+    from t2igan_torch.models.legacy import (CnnEncoder, GlobalAttentionText,
+                                            RnnEncoder)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(31)
+
+    def compare(name, cpu_mod, inputs, tol):
+        card_mod = copy.deepcopy(cpu_mod).to("cuda").eval()
+        cpu_mod.eval()
+        card_in = [x.to("cuda") for x in inputs]
+        with torch.no_grad():
+            want = cpu_mod(*inputs)
+            got = card_mod(*card_in)
+            ms = cuda_ms(lambda: card_mod(*card_in), iters=10)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, want))
+        ok = all(torch.allclose(a.cpu(), b, rtol=tol, atol=tol)
+                 for a, b in zip(got, want))
+        print(f"[{card}] legacy {name}: card vs CPU max_abs_diff={err:.3e} "
+              f"(rtol = atol = {tol:.0e}) {'ok' if ok else 'FAIL'}; "
+              f"{ms:.3f} ms a call on the card")
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+    b, t = 16, 18
+    lens = torch.tensor([t, 0, 1] + torch.randint(
+        1, t + 1, (b - 3,), generator=g).tolist())
+    caps = torch.randint(1, 5450, (b, t), generator=g)
+    caps = caps * (torch.arange(t)[None, :] < lens[:, None])
+    for rnn_type in ("LSTM", "GRU"):
+        enc = RnnEncoder(5450, 300, 256, rnn_type)
+        with torch.no_grad():
+            for p in enc.parameters():
+                p.uniform_(-0.1, 0.1, generator=g)
+        compare(f"RnnEncoder {rnn_type} (5450 words, 300 in, 256 hidden, "
+                f"T {t}, batch {b})", enc, [caps, lens], 1e-5)
+
+    cnn = CnnEncoder(256)
+    init_inception_(cnn.inception, g)
+    with torch.no_grad():
+        for p in (cnn.emb_features.weight, cnn.emb_cnn_code.weight,
+                  cnn.emb_cnn_code.bias):
+            p.uniform_(-0.1, 0.1, generator=g)
+    images = torch.rand((4, 299, 299, 3), generator=g) * 2 - 1
+    compare("CnnEncoder (299 px, nef 256, batch 4)", cnn, [images], 1e-4)
+
+    att = GlobalAttentionText(256, 256)
+    with torch.no_grad():
+        for p in att.parameters():
+            p.normal_(0.0, 256 ** -0.5, generator=g)
+    pad = torch.arange(t)[None, :] >= lens[:, None]
+    compare(f"GlobalAttentionText (idf 256, 17x17, {t} words, batch {b})",
+            att, [torch.randn((b, 17, 17, 256), generator=g),
+                  torch.randn((b, t, 256), generator=g), pad], 1e-5)
+
+
 def main() -> int:
     import torch
 
@@ -2196,6 +2507,9 @@ def main() -> int:
     time_memory_read_bwd(card, results, step_ms)
     time_reschain(card, results)
     drive_real_data(card, step_ms, damsm_ms["bf16"])
+    drive_dcgan(card)
+    check_figures()
+    check_legacy_encoders(card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -18,7 +18,11 @@ and nothing of ``t2igan`` or JAX.  Its paths so far:
   :mod:`t2igan_torch.data.pipeline`) whose images the port's own JPEG/PNG
   decoder reads (``csrc/image_decode.cc``, built with ``g++`` at first use
   with the C++ pyramid and executor);
-* FID and IS from image directories (:mod:`t2igan_torch.evaluation`).
+* FID and IS from image directories (:mod:`t2igan_torch.evaluation`);
+* ``GAN.B_DCGAN``'s single-output generator in eval, the attention
+  figures drawn without PIL (:mod:`t2igan_torch.utils.viz`), the trainers'
+  ``metrics.jsonl`` and the legacy RNN/CNN encoders
+  (:mod:`t2igan_torch.models.legacy`).
 
 The memory read of each refinement stage is a pair of hand-written CUDA
 kernels, forward (``csrc/memory_read.cu``) and backward

@@ -174,22 +174,44 @@ inline int pyramid_from_rgb(const uint8_t* src, int sh, int sw, int scale_size,
   return 0;
 }
 
-// PIL's Image.resize((dw, dh), BILINEAR) of 8-bit RGB, bit for bit
-// (Pillow's Resample.c: precompute_coeffs, normalize_coeffs_8bpc and the
-// two 8bpc passes).  Support = max(1, in/out); each output's window is
-// [int(center - support + 0.5), int(center + support + 0.5)), its triangle
-// weights in double, normalised, then fixed point at 22 bits with a
-// round-half bias; a horizontal pass to a uint8 intermediate, then a
-// vertical one, each rounded and clipped.  A pass whose size is unchanged
-// is skipped, as PIL skips it.
+// PIL's Image.resize((dw, dh), BILINEAR or BICUBIC) of 8-bit RGB, bit for
+// bit (Pillow's Resample.c: precompute_coeffs, normalize_coeffs_8bpc and
+// the two 8bpc passes).  Support = the filter's (1 triangle, 2 cubic) times
+// max(1, in/out); each output's window is [int(center - support + 0.5),
+// int(center + support + 0.5)), its filter weights in double, normalised,
+// then fixed point at 22 bits with a round-half bias (away from zero for
+// the cubic's negative lobes); a horizontal pass to a uint8 intermediate,
+// then a vertical one, each rounded and clipped.  A pass whose size is
+// unchanged is skipped, as PIL skips it.
 constexpr int kPilPrecision = 22;
 
+struct PilBilinear {
+  static constexpr double kSupport = 1.0;
+  static double weight(double x) {
+    if (x < 0.0) x = -x;
+    return x < 1.0 ? 1.0 - x : 0.0;
+  }
+};
+
+// Cubic convolution with a = -0.5 (Resample.c's bicubic_filter).
+struct PilBicubic {
+  static constexpr double kSupport = 2.0;
+  static double weight(double x) {
+    const double a = -0.5;
+    if (x < 0.0) x = -x;
+    if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+    if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+    return 0.0;
+  }
+};
+
+template <typename Filter>
 inline int pil_coeffs(int in_size, int out_size, std::vector<int>& bounds,
                       std::vector<int32_t>& kk) {
   const double scale = static_cast<double>(static_cast<float>(in_size)) /
                        out_size;
   const double filterscale = scale < 1.0 ? 1.0 : scale;
-  const double support = 1.0 * filterscale;
+  const double support = Filter::kSupport * filterscale;
   const int ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   bounds.assign(static_cast<size_t>(out_size) * 2, 0);
   kk.assign(static_cast<size_t>(out_size) * ksize, 0);
@@ -204,9 +226,7 @@ inline int pil_coeffs(int in_size, int out_size, std::vector<int>& bounds,
     xmax -= xmin;
     double ww = 0.0;
     for (int x = 0; x < xmax; ++x) {
-      double t = (x + xmin - center + 0.5) * ss;
-      if (t < 0.0) t = -t;
-      const double w = t < 1.0 ? 1.0 - t : 0.0;
+      const double w = Filter::weight((x + xmin - center + 0.5) * ss);
       k[x] = w;
       ww += w;
     }
@@ -231,15 +251,16 @@ inline uint8_t pil_clip8(int in) {
   return static_cast<uint8_t>(in >> kPilPrecision);
 }
 
-inline void resize_pil_bilinear(const uint8_t* src, int sh, int sw,
-                                uint8_t* dst, int dh, int dw) {
+template <typename Filter>
+inline void resize_pil(const uint8_t* src, int sh, int sw, uint8_t* dst,
+                       int dh, int dw) {
   std::vector<uint8_t> tmp;
   const uint8_t* in = src;
   int w = sw;
   std::vector<int> bounds;
   std::vector<int32_t> kk;
   if (dw != sw) {
-    const int ksize = pil_coeffs(sw, dw, bounds, kk);
+    const int ksize = pil_coeffs<Filter>(sw, dw, bounds, kk);
     tmp.resize(static_cast<size_t>(sh) * dw * 3);
     for (int y = 0; y < sh; ++y) {
       const uint8_t* row = src + static_cast<size_t>(y) * sw * 3;
@@ -263,7 +284,7 @@ inline void resize_pil_bilinear(const uint8_t* src, int sh, int sw,
     w = dw;
   }
   if (dh != sh) {
-    const int ksize = pil_coeffs(sh, dh, bounds, kk);
+    const int ksize = pil_coeffs<Filter>(sh, dh, bounds, kk);
     for (int y = 0; y < dh; ++y) {
       const int ymin = bounds[2 * y], ymax = bounds[2 * y + 1];
       const int32_t* k = kk.data() + static_cast<size_t>(y) * ksize;

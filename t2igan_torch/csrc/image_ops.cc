@@ -82,7 +82,13 @@ void t2i_resize_rgb(const uint8_t* src, int sh, int sw, float* dst, int dh,
 // PIL's BILINEAR resize of RGB uint8 (sh x sw) to RGB uint8 (dh x dw).
 void t2i_resize_pil_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst,
                              int dh, int dw) {
-  t2i::resize_pil_bilinear(src, sh, sw, dst, dh, dw);
+  t2i::resize_pil<t2i::PilBilinear>(src, sh, sw, dst, dh, dw);
+}
+
+// PIL's BICUBIC resize (Image.resize's default for RGB), as above.
+void t2i_resize_pil_bicubic(const uint8_t* src, int sh, int sw, uint8_t* dst,
+                            int dh, int dw) {
+  t2i::resize_pil<t2i::PilBicubic>(src, sh, sw, dst, dh, dw);
 }
 
 // Full per-sample pipeline (see image_core.h::pyramid_from_rgb).

@@ -15,7 +15,8 @@ build at once never load half a file.  It exposes:
   :func:`image_dims`: height and width from the header alone;
 * :func:`resize_rgb`, :func:`pyramid`, :func:`pyramid_batch`: the JAX
   package's triangle-filter resize and per-sample pyramid;
-* :func:`resize_pil_bilinear`: PIL's ``Image.resize(..., BILINEAR)``;
+* :func:`resize_pil_bilinear`, :func:`resize_pil_bicubic`: PIL's
+  ``Image.resize(..., BILINEAR)`` and ``Image.resize(...)`` (BICUBIC);
 * :func:`load_sample`: read, decode, bbox crop and pyramid of one sample;
 * :class:`AsyncExecutor`: the C++ thread pool with a ring of batch slots.
 
@@ -113,6 +114,8 @@ def load() -> ctypes.CDLL:
                                None),
             "t2i_resize_pil_bilinear": ([u8p, c_int, c_int, u8p, c_int,
                                          c_int], None),
+            "t2i_resize_pil_bicubic": ([u8p, c_int, c_int, u8p, c_int,
+                                        c_int], None),
             "t2i_pyramid": ([u8p, c_int, c_int, c_int, c_int, c_int, c_int,
                              c_int, i32p, c_int, ctypes.POINTER(f32p), f32p,
                              f32p], c_int),
@@ -210,19 +213,32 @@ def resize_rgb(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return out
 
 
+def _resize_pil(name: str, img: np.ndarray, out_h: int,
+                out_w: int) -> np.ndarray:
+    lib = load()
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3 or out_h < 1 or out_w < 1:
+        raise ValueError(f"{name}: bad shapes {img.shape} -> "
+                         f"{(out_h, out_w)}")
+    out = np.empty((out_h, out_w, 3), np.uint8)
+    getattr(lib, f"t2i_{name}")(_u8p(img), img.shape[0], img.shape[1],
+                                _u8p(out), out_h, out_w)
+    return out
+
+
 def resize_pil_bilinear(img: np.ndarray, out_h: int,
                         out_w: int) -> np.ndarray:
     """PIL's ``Image.resize((out_w, out_h), BILINEAR)`` of HWC uint8 RGB,
     bit for bit."""
-    lib = load()
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3 or out_h < 1 or out_w < 1:
-        raise ValueError(f"resize_pil_bilinear: bad shapes {img.shape} -> "
-                         f"{(out_h, out_w)}")
-    out = np.empty((out_h, out_w, 3), np.uint8)
-    lib.t2i_resize_pil_bilinear(_u8p(img), img.shape[0], img.shape[1],
-                                _u8p(out), out_h, out_w)
-    return out
+    return _resize_pil("resize_pil_bilinear", img, out_h, out_w)
+
+
+def resize_pil_bicubic(img: np.ndarray, out_h: int,
+                       out_w: int) -> np.ndarray:
+    """PIL's ``Image.resize((out_w, out_h))`` of HWC uint8 RGB: its
+    default filter for RGB, BICUBIC (cubic convolution, a = -0.5), bit for
+    bit."""
+    return _resize_pil("resize_pil_bicubic", img, out_h, out_w)
 
 
 def _branch_outputs(branch_sizes: Sequence[int]):

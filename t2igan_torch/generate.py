@@ -8,7 +8,8 @@
 The ``gen_example`` flow of the JAX trainer without attention grids: the
 captions (one per line) are tokenized, ``z`` and the conditioning noise are
 drawn from a seeded ``torch.Generator``, the sampler runs, and each
-caption's 64, 128 and 256 px images are written as ``<i>_g<k>.png``.
+caption's 64, 128 and 256 px images are written as ``<i>_g<k>.png`` (with
+``GAN.B_DCGAN: True``, the one 256 px image as ``<i>_g0.png``).
 The generator's weights come from ``--weights`` (a ``netG_epoch_%d.pth``
 or the JAX package's ``.npz`` export), else from ``TRAIN.NET_G`` when it
 names a file, else they are random, made from ``--seed``; CLIP's come from
@@ -35,6 +36,7 @@ from t2igan_torch.ops.image import uint8_from_tanh
 from t2igan_torch.train.export import load_generator_weights
 from t2igan_torch.train.steps import make_sampler
 from t2igan_torch.utils.png import write_png
+from t2igan_torch.utils.viz import attention_grid, tanh_to01, word_labels
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -71,22 +73,34 @@ def build_models(cfg: Config, seed: int, device: torch.device,
 def sample_and_write(cfg: Config, sampler, tokenizer: ClipTokenizer,
                      captions: Sequence[str], noise: torch.Generator,
                      output_dir: Optional[str],
-                     name: Callable[[int, int], str]) -> List[torch.Tensor]:
+                     name: Callable[[int, int], str],
+                     grid_name: Optional[Callable[[int], str]] = None
+                     ) -> List[torch.Tensor]:
     """Sample ``captions`` (tokenized to ``TEXT.WORDS_NUM``; ``z`` then
     ``eps`` drawn from ``noise``) and, when ``output_dir`` is given, write
     stage ``k``'s image of caption ``j`` as ``output_dir/name(j, k)``.
-    Returns each stage's images [b, s, s, 3]."""
+    With ``grid_name``, ``sampler`` is a ``return_attn`` one and stage
+    ``k``'s attention maps over stage ``k + 1``'s images are written as
+    the grid ``output_dir/grid_name(k)`` (:func:`attention_grid`, every
+    caption a row).  Returns each stage's images [b, s, s, 3]."""
     tok = tokenizer(list(captions), max_length=cfg.TEXT.WORDS_NUM)
     b = tok["input_ids"].shape[0]
     z = torch.randn((b, cfg.GAN.Z_DIM), generator=noise)
     eps = torch.randn((b, cfg.GAN.CONDITION_DIM), generator=noise)
-    fakes = sampler(tok["input_ids"], tok["attention_mask"], z, eps)
+    out = sampler(tok["input_ids"], tok["attention_mask"], z, eps)
+    fakes, atts = out if grid_name is not None else (out, [])
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
         for k, stage in enumerate(fakes):
             u8 = uint8_from_tanh(stage).cpu().numpy()
             for j in range(b):
                 write_png(os.path.join(output_dir, name(j, k)), u8[j])
+        labels = word_labels(tokenizer, tok["input_ids"]) if atts else []
+        for k, att in enumerate(atts):
+            grid = attention_grid(
+                tanh_to01(fakes[k + 1].float().cpu().numpy()),
+                att.cpu().numpy(), labels)
+            write_png(os.path.join(output_dir, grid_name(k)), grid)
     return fakes
 
 
@@ -139,7 +153,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     generate(cfg, captions, args.output_dir,
              args.batch or cfg.TRAIN.BATCH_SIZE, DTYPES[args.dtype],
              args.seed, args.device, weights=args.weights)
-    print(f"wrote {cfg.TREE.BRANCH_NUM * len(captions)} images to "
+    per_caption = 1 if cfg.GAN.B_DCGAN else cfg.TREE.BRANCH_NUM
+    print(f"wrote {per_caption * len(captions)} images to "
           f"{args.output_dir}")
 
 

@@ -1,3 +1,4 @@
 """Models of the port: CLIP (text and vision towers, region head), the
-DM-GAN generator, the spectral-norm discriminators, their builders, and
-the bridge that loads the JAX package's weights into them."""
+DM-GAN generators (``GNet``, ``GDCGan``), the spectral-norm
+discriminators, the legacy RNN/CNN encoders, their builders, and the
+bridge that loads the JAX package's weights into them."""

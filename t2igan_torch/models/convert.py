@@ -36,9 +36,12 @@ discriminators, as ``netG_epoch_%d.pth`` and ``netD%d.pth``
 :func:`discriminator_reference_state_dict`, their loaders and the
 ``save_*_pth``/``load_*_pth`` pairs), under the names that the JAX
 package's ``convert_torch_generator_state`` and
-``convert_torch_discriminator_state`` read; and the generator goes back
-to a JAX variable tree (:func:`jax_generator_variables`) for the ``.npz``
-export.
+``convert_torch_discriminator_state`` read (the generator as a ``G_NET``,
+or a ``G_DCGAN`` for a ``GDCGan``); and the generator goes back to a JAX
+variable tree (:func:`jax_generator_variables`) for the ``.npz`` export.
+The legacy encoders load from the JAX package's variables
+(:func:`load_jax_rnn_encoder`, :func:`load_jax_cnn_encoder`,
+:func:`load_jax_global_attention_text`).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from __future__ import annotations
 import math
 import os
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,9 +59,11 @@ from t2igan_torch.models.clip import (ClipWithRegionHead, EncoderLayer,
                                       TextTower, VisionTower)
 from t2igan_torch.models.discriminator import DGetLogits, DNetWithHeads
 from t2igan_torch.models.inception import BasicConv2d, InceptionV3
-from t2igan_torch.models.generator import (BatchNorm, CANet, GetImageG, GNet,
-                                           InitStageG, NextStageG, ResBlock,
-                                           UpBlock)
+from t2igan_torch.models.legacy import (CnnEncoder, GlobalAttentionText,
+                                        RnnEncoder)
+from t2igan_torch.models.generator import (BatchNorm, CANet, GDCGan,
+                                           GetImageG, GNet, InitStageG,
+                                           NextStageG, ResBlock, UpBlock)
 from t2igan_torch.ops.spectral import SNConv
 
 Path = Tuple[str, ...]
@@ -182,30 +187,61 @@ def _image_head(ld: _Loader, m: GetImageG, path: Path) -> None:
     ld.conv(m.conv, ("params",) + path + ("Conv_0",))
 
 
-def _gnet(ld: _Loader, m: GNet, path: Path) -> None:
+def _stages(ld: _Loader, m, path: Path) -> None:
     _ca_net(ld, m.ca_net, path + ("CANet_0",))
     _init_stage(ld, m.init_stage, path + ("InitStageG_0",))
     for i, stage in enumerate(m.next_stages):
         _next_stage(ld, stage, path + (f"NextStageG_{i}",))
+
+
+def _gnet(ld: _Loader, m: GNet, path: Path) -> None:
+    _stages(ld, m, path)
     for i, head in enumerate(m.image_heads):
         _image_head(ld, head, path + (f"GetImageG_{i}",))
 
 
-_GENERATOR_LOADERS = {GNet: _gnet, CANet: _ca_net, InitStageG: _init_stage,
-                      NextStageG: _next_stage, UpBlock: _up_block,
-                      ResBlock: _res_block, GetImageG: _image_head}
+def _gdcgan(ld: _Loader, m: GDCGan, path: Path) -> None:
+    """The JAX ``GDCGan``: ``GNet``'s names with the one head
+    ``GetImageG_0``."""
+    _stages(ld, m, path)
+    _image_head(ld, m.image_head, path + ("GetImageG_0",))
+
+
+_GENERATOR_LOADERS = {GNet: _gnet, GDCGan: _gdcgan, CANet: _ca_net,
+                      InitStageG: _init_stage, NextStageG: _next_stage,
+                      UpBlock: _up_block, ResBlock: _res_block,
+                      GetImageG: _image_head}
+
+
+def _check_heads(module: nn.Module, n_heads: int, what: str) -> None:
+    """Raise, naming ``GAN.B_DCGAN``, when a file's count of RGB heads
+    says it holds the other generator class (one head: ``G_DCGAN``, one a
+    branch: ``G_NET``; with one branch the two are the same)."""
+    if isinstance(module, GDCGan) and n_heads > 1:
+        raise ValueError(f"{what} holds a G_NET ({n_heads} RGB heads) but "
+                         f"the generator is GDCGan: set GAN.B_DCGAN: False")
+    if isinstance(module, GNet) and n_heads == 1 and \
+            len(module.image_heads) > 1:
+        raise ValueError(f"{what} holds a G_DCGAN (one RGB head) but the "
+                         f"generator is GNet with {len(module.image_heads)} "
+                         f"branches: set GAN.B_DCGAN: True")
 
 
 @torch.no_grad()
 def load_jax_generator(module: nn.Module, variables: Mapping[str, Any]):
     """Fill ``module`` from the variables ``{"params": ...,
-    "batch_stats": ...}`` of its JAX counterpart: a ``GNet``, or one of its
-    parts (``CANet``, ``InitStageG``, ``NextStageG``, ``UpBlock``,
-    ``ResBlock``, ``GetImageG``) initialised on its own."""
+    "batch_stats": ...}`` of its JAX counterpart: a ``GNet`` or a
+    ``GDCGan``, or one of their parts (``CANet``, ``InitStageG``,
+    ``NextStageG``, ``UpBlock``, ``ResBlock``, ``GetImageG``) initialised
+    on its own.  A ``GNet`` tree into a ``GDCGan``, or the reverse, raises
+    naming ``GAN.B_DCGAN``."""
     loader = _GENERATOR_LOADERS.get(type(module))
     if loader is None:
         raise TypeError(f"no JAX generator counterpart for "
                         f"{type(module).__name__}")
+    _check_heads(module, sum(k.startswith("GetImageG_")
+                             for k in variables.get("params", {})),
+                 "the JAX variable tree")
     ld = _Loader(variables)
     loader(ld, module, ())
     ld.check_all_used()
@@ -378,6 +414,89 @@ def load_jax_inception(module: InceptionV3,
 
 
 # ---------------------------------------------------------------------------
+# The legacy encoders (models/legacy.py)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def load_jax_rnn_encoder(module: RnnEncoder,
+                         variables: Mapping[str, Any]) -> RnnEncoder:
+    """Fill ``module`` from the variables ``{"params": ...}`` of the JAX
+    ``RnnEncoder`` of the same ``rnn_type``: the inverse of the JAX
+    package's ``convert_torch_rnn_encoder_state``.  Each direction's cell
+    (``*Cell_0`` forward, ``*Cell_1`` the ``_reverse`` weights) has a dense
+    layer per gate; torch stacks the gates on the rows, LSTM (i, f, g, o)
+    and GRU (r, z, n).  LSTM: the ``h*`` biases (which carry b_ih + b_hh)
+    become ``bias_ih`` and ``bias_hh`` is 0.  GRU: the ``i{r,z}`` biases
+    (b_ih + b_hh) and ``in``'s become ``bias_ih``; ``bias_hh`` is 0 but for
+    its n rows, ``hn``'s bias, the one pre-activation where torch keeps
+    the two apart (``r`` multiplies only the hidden side)."""
+    ld = _Loader(variables)
+    ld.copy(module.encoder.weight,
+            ld.get(("params", "Embed_0", "embedding")),
+            ("params", "Embed_0", "embedding"))
+    lstm = module.rnn_type == "LSTM"
+    cell, gates = ("OptimizedLSTMCell", "ifgo") if lstm else ("GRUCell",
+                                                              "rzn")
+    for d, suffix in enumerate(("", "_reverse")):
+        p = ("params", f"{cell}_{d}")
+        w_ih = np.concatenate([ld.get(p + (f"i{g}", "kernel")).T
+                               for g in gates])
+        w_hh = np.concatenate([ld.get(p + (f"h{g}", "kernel")).T
+                               for g in gates])
+        if lstm:
+            b_ih = np.concatenate([ld.get(p + (f"h{g}", "bias"))
+                                   for g in gates])
+            b_hh = np.zeros_like(b_ih)
+        else:
+            b_ih = np.concatenate([ld.get(p + (f"i{g}", "bias"))
+                                   for g in gates])
+            b_hh = np.zeros_like(b_ih)
+            hn = ld.get(p + ("hn", "bias"))
+            b_hh[-len(hn):] = hn
+        rnn = module.rnn
+        for name, arr in (("weight_ih", w_ih), ("weight_hh", w_hh),
+                          ("bias_ih", b_ih), ("bias_hh", b_hh)):
+            ld.copy(getattr(rnn, f"{name}_l0{suffix}"), arr,
+                    p + (name,))
+    ld.check_all_used()
+    return module
+
+
+@torch.no_grad()
+def load_jax_cnn_encoder(module: CnnEncoder,
+                         variables: Mapping[str, Any]) -> CnnEncoder:
+    """Fill ``module`` from the variables ``{"params": ...,
+    "batch_stats": ...}`` of the JAX ``CnnEncoder``: its ``inception``
+    subtree through :func:`load_jax_inception`, then the two heads."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    extra = (set(params) - {"inception", "emb_features", "emb_cnn_code"}) \
+        | (set(stats) - {"inception"})
+    if extra:
+        raise ValueError(f"JAX variables that no module of the port takes: "
+                         f"{sorted(extra)}")
+    load_jax_inception(module.inception, {
+        "params": params["inception"],
+        "batch_stats": stats.get("inception", {})})
+    ld = _Loader({"params": {k: params[k] for k in
+                             ("emb_features", "emb_cnn_code")}})
+    ld.conv(module.emb_features, ("params", "emb_features"))
+    ld.dense(module.emb_cnn_code, ("params", "emb_cnn_code"))
+    ld.check_all_used()
+    return module
+
+
+@torch.no_grad()
+def load_jax_global_attention_text(module: GlobalAttentionText,
+                                   variables: Mapping[str, Any]
+                                   ) -> GlobalAttentionText:
+    """Fill ``module`` from the JAX ``GlobalAttentionText``'s variables."""
+    ld = _Loader(variables)
+    ld.dense(module.conv_context, ("params", "conv_context"))
+    ld.check_all_used()
+    return module
+
+
+# ---------------------------------------------------------------------------
 # CLIP under the reference's (HF CLIPModel) names
 # ---------------------------------------------------------------------------
 
@@ -545,17 +664,20 @@ class _Writer:
 
 
 @torch.no_grad()
-def jax_generator_variables(module: GNet, stats_from: GNet = None
+def jax_generator_variables(module: Union[GNet, GDCGan],
+                            stats_from: Union[GNet, GDCGan] = None
                             ) -> Dict[str, Any]:
     """``{"params": ..., "batch_stats": ...}`` of ``module`` as nested dicts
-    of f32 numpy arrays under the JAX ``GNet``'s names: the inverse of
+    of f32 numpy arrays under the JAX ``GNet``'s (or ``GDCGan``'s) names:
+    the inverse of
     :func:`load_jax_generator`.  The batch statistics come from
     ``stats_from`` (default ``module``): the EMA generator is saved with
     the trained G's running statistics, as the JAX package does."""
+    walk = _GENERATOR_LOADERS[type(module)]
     params = _Writer()
-    _gnet(params, module, ())
+    walk(params, module, ())
     stats = _Writer()
-    _gnet(stats, stats_from if stats_from is not None else module, ())
+    walk(stats, stats_from if stats_from is not None else module, ())
     return {"params": params.tree["params"],
             "batch_stats": stats.tree["batch_stats"]}
 
@@ -568,8 +690,9 @@ def _stage(m) -> int:
     return int(m.group(1)) + 2
 
 
-# Port name -> reference key, first match wins (the reference's G_NET and
-# D_NET64/128/256; the name table of the JAX package's converters).
+# Port name -> reference key, first match wins (the reference's G_NET,
+# G_DCGAN and D_NET64/128/256; the name table of the JAX package's
+# converters).
 _BLOCK = {"conv1": 0, "bn1": 1, "conv2": 3, "bn2": 4}
 _GENERATOR_RENAMES = (
     (r"^init_stage\.fc\.", lambda m: "h_net1.fc.0."),
@@ -591,6 +714,7 @@ _GENERATOR_RENAMES = (
                                                 f"{m.group(2)}."),
     (r"^image_heads\.(\d+)\.conv\.",
      lambda m: f"img_net{int(m.group(1)) + 1}.img.0."),
+    (r"^image_head\.conv\.", lambda m: "img_net.img.0."),
     (r"^ca_net\.fc\.", lambda m: "ca_net.fc."),
 )
 # The memory projections are k=1 Conv1d in the reference: (out, in, 1).
@@ -647,13 +771,15 @@ def _cpu32(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def generator_reference_state_dict(module: GNet, stats_from: GNet = None
+def generator_reference_state_dict(module: Union[GNet, GDCGan],
+                                   stats_from: Union[GNet, GDCGan] = None
                                    ) -> Dict[str, torch.Tensor]:
     """The weights of ``module`` as f32 CPU tensors under the reference's
     ``G_NET`` names (``netG_epoch_%d.pth``): ``ca_net.fc``,
     ``h_net1.fc.{0,1}``, ``h_net1.upsample{1..4}.{1,2}``,
     ``h_net<b>.{A,B,M_w.0,M_r.0,key.0,value.0,response_gate.0,
-    residual.<i>.block.{0,1,3,4},upsample.{1,2}}`` and ``img_net<b>.img.0``.
+    residual.<i>.block.{0,1,3,4},upsample.{1,2}}`` and ``img_net<b>.img.0``
+    (a ``GDCGan``: ``G_DCGAN``'s, the one head ``img_net.img.0``).
     Linears stay (out, in), the memory projections become k=1 Conv1d
     weights (out, in, 1), convs OIHW, BNs ``weight/bias/running_mean/
     running_var/num_batches_tracked`` (the last 0: the port does not count
@@ -742,21 +868,22 @@ def _load_reference_state(module: nn.Module, state_dict: Mapping[str, Any],
     return module
 
 
-def load_reference_generator_state(module: GNet,
-                                   state_dict: Mapping[str, Any]) -> GNet:
+def load_reference_generator_state(module: Union[GNet, GDCGan],
+                                   state_dict: Mapping[str, Any]
+                                   ) -> Union[GNet, GDCGan]:
     """Fill ``module`` in place (``copy_``, so the fused tail's cached
     operands see the change) from a state dict under the reference's
-    ``G_NET`` names (the inverse of :func:`generator_reference_state_dict`;
-    keys may carry the ``module.`` prefix, ``num_batches_tracked`` is
-    ignored).  A missing or mis-shaped key raises, and so does a key that
-    no tensor takes (another ``R_NUM`` or branch count).  A ``G_DCGAN``
-    dict raises ``NotImplementedError``, as ``build_generator`` does on
-    ``GAN.B_DCGAN``."""
-    if any(k.startswith(("img_net.", "module.img_net."))
-           for k in state_dict):
-        raise NotImplementedError(
-            "a G_DCGAN state dict (GAN.B_DCGAN): the port has not ported "
-            "GDCGan yet (ROADMAP.md, Queue 1)")
+    ``G_NET`` names (``G_DCGAN``'s for a ``GDCGan``: one head,
+    ``img_net.img.0``); the inverse of
+    :func:`generator_reference_state_dict`.  Keys may carry the
+    ``module.`` prefix, ``num_batches_tracked`` is ignored.  A missing or
+    mis-shaped key raises, and so does a key that no tensor takes (another
+    ``R_NUM`` or branch count); a ``G_NET`` dict into a ``GDCGan``, or the
+    reverse, raises naming ``GAN.B_DCGAN``."""
+    heads = {k.split(".img.0.")[0] for k in
+             (k[len("module."):] if k.startswith("module.") else k
+              for k in state_dict) if k.startswith("img_net")}
+    _check_heads(module, len(heads), "the generator state dict")
     return _load_reference_state(module, state_dict, "generator")
 
 
@@ -779,14 +906,15 @@ def _read(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def save_generator_pth(module: GNet, path: str,
-                       stats_from: GNet = None) -> None:
+def save_generator_pth(module: Union[GNet, GDCGan], path: str,
+                       stats_from: Union[GNet, GDCGan] = None) -> None:
     """``torch.save`` of :func:`generator_reference_state_dict` (a
-    reference ``netG_epoch_%d.pth``)."""
+    reference ``netG_epoch_%d.pth``, ``G_NET`` or ``G_DCGAN``)."""
     _save(generator_reference_state_dict(module, stats_from), path)
 
 
-def load_generator_pth(module: GNet, path: str) -> GNet:
+def load_generator_pth(module: Union[GNet, GDCGan], path: str
+                       ) -> Union[GNet, GDCGan]:
     """Fill ``module`` from a ``netG_epoch_%d.pth`` (the port's or the
     reference's)."""
     return load_reference_generator_state(module, _read(path))

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, Union
 
 import torch
 
@@ -12,25 +12,20 @@ from t2igan_torch.config import Config
 from t2igan_torch.models.clip import ClipConfig, ClipWithRegionHead, init_clip_
 from t2igan_torch.models.convert import load_clip_pth
 from t2igan_torch.models.discriminator import DNetWithHeads
-from t2igan_torch.models.generator import GNet
+from t2igan_torch.models.generator import GDCGan, GNet
 
 
-def build_generator(cfg: Config) -> GNet:
-    """The generator the config names, in eval mode, f32 on the CPU (move
-    it with ``.to(device, dtype)``).
-
-    ``GAN.FUSED_TAIL`` runs each eval-mode stage tail through the fused
-    tail kernel (K3).  Raises ``NotImplementedError`` on ``GAN.B_DCGAN``
-    (``GDCGan``, which the port does not have yet, ROADMAP.md Queue 1)."""
-    if cfg.GAN.B_DCGAN:
-        raise NotImplementedError(
-            "GAN.B_DCGAN selects GDCGan, which the port has not ported yet "
-            "(ROADMAP.md, Queue 1)")
-    return GNet(gf_dim=cfg.GAN.GF_DIM, nef=cfg.TEXT.EMBEDDING_DIM,
-                condition_dim=cfg.GAN.CONDITION_DIM, z_dim=cfg.GAN.Z_DIM,
-                branch_num=cfg.TREE.BRANCH_NUM, num_residual=cfg.GAN.R_NUM,
-                upblock=cfg.GAN.UPBLOCK,
-                fused_tail=cfg.GAN.FUSED_TAIL).eval()
+def build_generator(cfg: Config) -> Union[GNet, GDCGan]:
+    """The generator the config names (``GDCGan`` under ``GAN.B_DCGAN``,
+    else ``GNet``), in eval mode, f32 on the CPU (move it with
+    ``.to(device, dtype)``).  ``GAN.FUSED_TAIL`` runs each eval-mode stage
+    tail through the fused tail kernel (K3)."""
+    cls = GDCGan if cfg.GAN.B_DCGAN else GNet
+    return cls(gf_dim=cfg.GAN.GF_DIM, nef=cfg.TEXT.EMBEDDING_DIM,
+               condition_dim=cfg.GAN.CONDITION_DIM, z_dim=cfg.GAN.Z_DIM,
+               branch_num=cfg.TREE.BRANCH_NUM, num_residual=cfg.GAN.R_NUM,
+               upblock=cfg.GAN.UPBLOCK,
+               fused_tail=cfg.GAN.FUSED_TAIL).eval()
 
 
 def build_discriminators(cfg: Config) -> List[DNetWithHeads]:

@@ -349,6 +349,53 @@ class GNet(nn.Module):
                 mu, logvar)
 
 
+class GDCGan(nn.Module):
+    """Single-output generator (``GAN.B_DCGAN``, the reference's
+    ``G_DCGAN``): :class:`GNet`'s stages with one RGB head, on the last
+    stage's map.  The same arguments as :class:`GNet`; with ``fused_tail``
+    in eval the earlier stages' tails run through the fused tail kernel
+    and the last one folds the head in, as in the JAX ``GDCGan``.
+    ``forward`` returns ``([image [B, s, s, 3]], att_maps, mu, logvar)``,
+    ``s`` the finest size."""
+
+    def __init__(self, gf_dim: int = 64, nef: int = 512,
+                 condition_dim: int = 512, z_dim: int = 100,
+                 branch_num: int = 3, num_residual: int = 2,
+                 upblock: str = "dilated", fused_tail: bool = False):
+        super().__init__()
+        self.fused_tail = fused_tail
+        self.ca_net = CANet(nef, condition_dim)
+        self.init_stage = InitStageG(gf_dim * 16, condition_dim + z_dim,
+                                     upblock)
+        self.next_stages = nn.ModuleList(
+            NextStageG(gf_dim, nef, num_residual, upblock, fused_tail)
+            for _ in range(branch_num - 1))
+        self.image_head = GetImageG(gf_dim)
+
+    def forward(self, z_code: torch.Tensor, sent_emb: torch.Tensor,
+                word_embs: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                ca_eps: torch.Tensor, return_attn: bool = True,
+                train: bool = False):
+        dtype = self.ca_net.fc.weight.dtype
+        c_code, mu, logvar = self.ca_net(sent_emb.to(dtype), ca_eps.to(dtype))
+        h_code = self.init_stage(z_code.to(dtype), c_code, train)
+        words = word_embs.to(dtype)
+        att_maps, img = [], None
+        last = len(self.next_stages) - 1
+        for i, stage in enumerate(self.next_stages):
+            if i == last and self.fused_tail and not train:
+                img, attn = stage(h_code, words, pad_mask, return_attn,
+                                  train, rgb_kernel=self.image_head.fold())
+            else:
+                h_code, attn = stage(h_code, words, pad_mask, return_attn,
+                                     train)
+            if attn is not None:
+                att_maps.append(attn)
+        if img is None:
+            img = self.image_head(h_code)
+        return [img.permute(0, 2, 3, 1)], att_maps, mu, logvar
+
+
 @torch.no_grad()
 def init_generator_(model: nn.Module,
                     generator: torch.Generator) -> nn.Module:

@@ -2,7 +2,8 @@
 numpy only.
 
 The artifact holds the EMA parameters and the trained G's BatchNorm
-running statistics under the JAX ``GNet``'s names, ``/``-joined:
+running statistics under the JAX ``GNet``'s (or ``GDCGan``'s) names,
+``/``-joined:
 ``params/<path>`` and ``batch_stats/<path>``.  The JAX package's
 ``save_generator`` writes it and its ``load_generator`` reads it, so a
 generator trained with either package samples in the other, and the port
@@ -12,14 +13,16 @@ reads it on a machine without JAX.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 
 from t2igan_torch.models.convert import (jax_generator_variables,
                                          load_generator_pth,
                                          load_jax_generator)
-from t2igan_torch.models.generator import GNet
+from t2igan_torch.models.generator import GDCGan, GNet
+
+Generator = Union[GNet, GDCGan]
 
 
 def _flatten(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
@@ -43,7 +46,8 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def save_generator_npz(path: str, gen_ema: GNet, gen: GNet = None) -> str:
+def save_generator_npz(path: str, gen_ema: Generator,
+                       gen: Generator = None) -> str:
     """Write ``gen_ema``'s parameters with ``gen``'s running statistics
     (default ``gen_ema``'s) as ``path`` (``.npz`` appended when missing);
     returns the path written."""
@@ -67,9 +71,10 @@ def load_generator_npz(path: str) -> Dict[str, Any]:
             for c in ("params", "batch_stats")}
 
 
-def load_generator_weights(gen: GNet, path: str) -> GNet:
+def load_generator_weights(gen: Generator, path: str) -> Generator:
     """Fill ``gen`` from a ``netG_epoch_%d.pth`` (the reference's names) or
-    a ``.npz`` generator export (the JAX package's names), in place."""
+    a ``.npz`` generator export (the JAX package's names), in place; a file
+    of the other generator class raises naming ``GAN.B_DCGAN``."""
     if path.endswith(".npz"):
         return load_jax_generator(gen, load_generator_npz(path))
     if path.endswith(".pth"):

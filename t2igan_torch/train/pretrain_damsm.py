@@ -26,7 +26,10 @@ reference's datasets (:class:`t2igan_torch.data.dataset.TextImageDataset`,
 the finest pyramid branch at ``TREE.BASE_SIZE``), through
 :class:`t2igan_torch.data.pipeline.DataLoader` with ``WORKERS`` workers and
 ``DATA_ENGINE``; a split that is not on disk is the synthetic dataset, as
-in the JAX package.  Not here yet: the attention figure.
+in the JAX package.  Every step is a row of ``<output_dir>/metrics.jsonl``
+(:class:`t2igan_torch.utils.logging.MetricsLogger`), and every snapshot
+epoch writes the attention figure ``<output_dir>/Image/attn_epoch%d.png``,
+as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import os
 import time
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from t2igan_torch.config import Config, cfg_from_file, cfg_replace
@@ -46,11 +50,17 @@ from t2igan_torch.data.synthetic import SyntheticDataset
 from t2igan_torch.data.tokenizer import ClipTokenizer
 from t2igan_torch.models.clip import ClipConfig
 from t2igan_torch.models.convert import save_clip_pth
+from t2igan_torch.losses import strip_special_tokens
 from t2igan_torch.models.factory import load_clip
+from t2igan_torch.ops.attention import word_region_attention
 from t2igan_torch.train.checkpoint import (CheckpointManager, damsm_payload,
                                            restore_damsm_payload)
 from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
 from t2igan_torch.train.steps import make_damsm_loss, make_damsm_step
+from t2igan_torch.utils.logging import MetricsLogger, StepTimer
+from t2igan_torch.utils.png import write_png
+from t2igan_torch.utils.viz import (attention_grid, denormalize_clip,
+                                    word_labels)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -112,7 +122,7 @@ class DamsmTrainer:
         self.output_dir = output_dir
         self.device = dev
         os.makedirs(output_dir, exist_ok=True)
-        tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
+        self.tokenizer = tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
         self.train_batches, self.val_batches = (
             make_loader(cfg, make_dataset(cfg, split), tokenizer, words_num,
                         True, dev) for split in ("train", "val"))
@@ -143,39 +153,57 @@ class DamsmTrainer:
         """Epochs ``self.epoch`` .. ``max_epochs - 1`` (default
         ``TRAIN.MAX_EPOCH``) of one step per batch, each followed by
         :meth:`evaluate` and, every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and
-        after the last, a ``clip%d.pth`` and the full train state.
-        Returns the last step's metrics."""
+        after the last, a ``clip%d.pth``, the full train state and
+        :meth:`save_attention_figure`.  Each step is a row of
+        ``metrics.jsonl`` (a console line every 50 steps,
+        ``images_per_sec`` from a :class:`StepTimer`).  Returns the last
+        step's metrics."""
         cfg = self.cfg
         epochs = max_epochs if max_epochs is not None else cfg.TRAIN.MAX_EPOCH
         metrics: Dict[str, float] = {}
-        for epoch in range(self.epoch, epochs):
-            start = time.perf_counter()
-            metrics = self.train_epoch(epoch) or metrics
-            val = self.evaluate()
-            print(f"| end epoch {epoch:3d} | valid s_loss {val['s_loss']:5.2f}"
-                  f" w_loss {val['w_loss']:5.2f} |"
-                  f" {time.perf_counter() - start:.1f}s", flush=True)
-            self.epoch = epoch + 1
-            if epoch % cfg.TRAIN.SNAPSHOT_INTERVAL == 0 or \
-                    epoch == epochs - 1:
-                save_clip_pth(self.state.clip, self.checkpoint_path(epoch))
-                self.ckpt.save(self.state.step, dict(
-                    damsm_payload(self.state, self.epoch),
-                    train_order=self.train_batches.epoch,
-                    val_order=self.val_batches.epoch,
-                    train_rng=data_rng_state(self.train_batches.dataset),
-                    val_rng=data_rng_state(self.val_batches.dataset)))
+        logger = MetricsLogger(self.output_dir)
+        timer = StepTimer(cfg.TRAIN.BATCH_SIZE)
+        try:
+            for epoch in range(self.epoch, epochs):
+                start = time.perf_counter()
+                metrics = self.train_epoch(epoch, logger, timer) or metrics
+                logger.flush()
+                val = self.evaluate()
+                print(f"| end epoch {epoch:3d} | valid s_loss "
+                      f"{val['s_loss']:5.2f} w_loss {val['w_loss']:5.2f} |"
+                      f" {time.perf_counter() - start:.1f}s", flush=True)
+                self.epoch = epoch + 1
+                if epoch % cfg.TRAIN.SNAPSHOT_INTERVAL == 0 or \
+                        epoch == epochs - 1:
+                    save_clip_pth(self.state.clip,
+                                  self.checkpoint_path(epoch))
+                    self.ckpt.save(self.state.step, dict(
+                        damsm_payload(self.state, self.epoch),
+                        train_order=self.train_batches.epoch,
+                        val_order=self.val_batches.epoch,
+                        train_rng=data_rng_state(self.train_batches.dataset),
+                        val_rng=data_rng_state(self.val_batches.dataset)))
+                    self.save_attention_figure(epoch)
+        finally:
+            logger.close()
         return metrics
 
-    def train_epoch(self, epoch: int) -> Dict[str, float]:
+    def train_epoch(self, epoch: int, logger: Optional[MetricsLogger] = None,
+                    timer: Optional[StepTimer] = None) -> Dict[str, float]:
         """One step per batch of the loader's next epoch, one printed line
-        each (``epoch`` labels them); returns the last step's metrics."""
+        each (``epoch`` labels them), each a row of ``logger`` when one is
+        given (with ``timer``'s images/s); returns the last step's
+        metrics."""
         metrics: Dict[str, float] = {}
         for i, batch in enumerate(prefetch_to_device(
                 (b.arrays(finest_only=True) for b in self.train_batches),
                 self.device)):
             t0 = time.perf_counter()
             out = self.step_fn(batch)
+            if logger is not None:
+                timer.tick()
+                logger.log(self.state.step, dict(
+                    out, images_per_sec=timer.images_per_sec))
             metrics = {k: float(v) for k, v in out.items()}
             print(f"| epoch {epoch:3d} | {i + 1:4d}/"
                   f"{len(self.train_batches):4d} batches | step "
@@ -183,6 +211,34 @@ class DamsmTrainer:
                   + " ".join(f"{k} {v:.4f}" for k, v in metrics.items())
                   + f" | {time.perf_counter() - t0:.2f}s", flush=True)
         return metrics
+
+    def save_attention_figure(self, epoch: int) -> None:
+        """``Image/attn_epoch<epoch>.png``: the word-region attention
+        (``word_region_attention`` of the words without <sos>/<eos> over
+        the image regions, GAMMA1) of the first 4 records of the
+        validation loader's probe batch, over their images
+        (:func:`attention_grid`), as the JAX trainer draws it; f32."""
+        batch = self.val_batches.peek()
+        if batch is None:
+            return
+        clip = self.state.clip
+        images = np.asarray(batch.images[-1][:4])
+        ids = torch.as_tensor(np.asarray(batch.input_ids[:4]),
+                              device=self.device)
+        mask = torch.as_tensor(np.asarray(batch.attention_mask[:4]),
+                               device=self.device)
+        with torch.no_grad():
+            subr, _ = clip.encode_image_verbose(
+                torch.as_tensor(images, device=self.device))
+            words, _ = clip.encode_text_verbose(ids, mask)
+            w, m = strip_special_tokens(words, mask)
+            _, attn = word_region_attention(
+                w, subr[:, 1:, :], m, self.cfg.TRAIN.SMOOTH.GAMMA1)
+        grid = attention_grid(denormalize_clip(images), attn.cpu().numpy(),
+                              word_labels(self.tokenizer,
+                                          batch.input_ids[:4]))
+        write_png(os.path.join(self.output_dir, "Image",
+                               f"attn_epoch{epoch}.png"), grid)
 
     def device_batch(self, batch) -> Dict:
         """A loader batch as the DAMSM step's: the finest images, both

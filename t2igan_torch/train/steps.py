@@ -3,7 +3,7 @@ DAMSM CLIP fine-tuning step, the adversarial GAN step and the sampler."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -13,7 +13,7 @@ from t2igan_torch.losses import (discriminator_loss, generator_adv_loss,
                                  strip_special_tokens, words_loss,
                                  wrong_pair)
 from t2igan_torch.models.clip import ClipWithRegionHead
-from t2igan_torch.models.generator import GNet
+from t2igan_torch.models.generator import GDCGan, GNet
 from t2igan_torch.ops.attention import l2_normalize
 from t2igan_torch.ops.image import resize_nearest
 from t2igan_torch.train.state import (DamsmOptimizer, GanTrainState,
@@ -139,7 +139,18 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
 
     ``dtype=torch.bfloat16`` runs the forwards under ``torch.autocast``
     (parameters, optimizer state and EMA stay f32); losses are f32.
+
+    ``GAN.B_DCGAN`` raises ``NotImplementedError``: the JAX package's step
+    cannot train ``GDCGan`` either (it pairs the 64 px real image with the
+    fakes of the one finest-size discriminator and calls that
+    discriminator's unconditional head, which it is built without).
     """
+    if cfg.GAN.B_DCGAN:
+        raise NotImplementedError(
+            "training with GAN.B_DCGAN: the JAX package's make_gan_step "
+            "cannot train GDCGan either (t2igan/train/steps.py feeds the "
+            "64 px real images to the single 256 px discriminator and calls "
+            "its missing unconditional head); ROADMAP.md F19")
     g1 = cfg.TRAIN.SMOOTH.GAMMA1
     g2 = cfg.TRAIN.SMOOTH.GAMMA2
     g3 = cfg.TRAIN.SMOOTH.GAMMA3
@@ -258,31 +269,35 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
 
 
 def make_sampler(cfg: Config, clip: ClipWithRegionHead,
-                 gen: GNet) -> Callable[..., List[torch.Tensor]]:
-    """Text -> image pyramid: the CLIP text tower, then the generator in
-    eval mode with the memory read through the K1 kernel on a card (the
-    plain version on the CPU) and no attention maps.
+                 gen: Union[GNet, GDCGan], return_attn: bool = False
+                 ) -> Callable:
+    """Text -> images: the CLIP text tower, then the generator in eval
+    mode.
 
     The returned ``sample(ids, mask, z, eps)`` takes token ids and the
     attention mask [B, L] (1 = real token), ``z`` [B, Z_DIM] and the
     conditioning noise ``eps`` [B, CONDITION_DIM], as arrays or tensors; it
     moves them to the generator's device and returns the images
-    [B, s, s, 3] in [-1, 1], one per pyramid size, computed under
-    ``torch.inference_mode()``.  ``cfg`` is taken for the JAX sampler's
-    signature; the modules carry their widths.
+    [B, s, s, 3] in [-1, 1], one per pyramid size (one, the finest, for a
+    ``GDCGan``), computed under ``torch.inference_mode()``.  The memory
+    read runs through the K1 kernel on a card (the plain version on the
+    CPU).  With ``return_attn`` it returns ``(images, att_maps)``, the
+    attention maps [B, H, W, L] (f32) of each refinement stage, and the
+    read runs as plain einsums, as the JAX sampler's does.  ``cfg`` is
+    taken for the JAX sampler's signature; the modules carry their widths.
     """
     del cfg
     device = next(gen.parameters()).device
 
-    def sample(ids, mask, z, eps) -> List[torch.Tensor]:
+    def sample(ids, mask, z, eps):
         with torch.inference_mode():
             ids = torch.as_tensor(ids, device=device)
             mask = torch.as_tensor(mask, device=device)
             words, sent = clip.encode_text_verbose(ids, mask)
-            fakes, _, _, _ = gen(torch.as_tensor(z, device=device), sent,
-                                 words, mask == 0,
-                                 torch.as_tensor(eps, device=device),
-                                 return_attn=False)
-        return fakes
+            fakes, atts, _, _ = gen(torch.as_tensor(z, device=device), sent,
+                                    words, mask == 0,
+                                    torch.as_tensor(eps, device=device),
+                                    return_attn=return_attn)
+        return (fakes, atts) if return_attn else fakes
 
     return sample

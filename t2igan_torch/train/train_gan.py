@@ -77,8 +77,10 @@ from t2igan_torch.train.pretrain_damsm import (data_rng_state, make_dataset,
                                                set_data_rng_state)
 from t2igan_torch.train.state import init_gan_state
 from t2igan_torch.train.steps import make_gan_step, make_sampler
+from t2igan_torch.utils.logging import MetricsLogger, StepTimer
 from t2igan_torch.utils.png import write_png
-from t2igan_torch.utils.viz import save_image_grid, tanh_to01
+from t2igan_torch.utils.viz import (attention_grid, save_image_grid,
+                                    tanh_to01, word_labels)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -122,7 +124,10 @@ class CondGanTrainer:
         gen = gen.to(dev, memory_format=torch.channels_last)
         ds = [d.to(dev, memory_format=torch.channels_last) for d in ds]
         self.state = init_gan_state(cfg, gen, ds)
-        self.step_fn = make_gan_step(cfg, self.clip, dtype)
+        # GDCGan does not train (make_gan_step raises, as the JAX step
+        # fails); under GAN.B_DCGAN the trainer only evaluates.
+        self.step_fn = None if cfg.GAN.B_DCGAN and not cfg.TRAIN.FLAG \
+            else make_gan_step(cfg, self.clip, dtype)
         self.noise = torch.Generator(device=dev).manual_seed(seed + 1)
         self.epoch = 0  # epochs done: train() goes on from here
         # (permutation, batches done) of an epoch stopped part-way.
@@ -197,6 +202,7 @@ class CondGanTrainer:
     def train_steps(self, steps: int) -> Dict[str, float]:
         """Take ``steps`` steps on a fresh shuffled stream, with one printed
         line each, and write nothing; returns the last step's metrics."""
+        self._check_trainable()
         metrics: Dict[str, float] = {}
         batches = self.batches()
         for _ in range(steps):
@@ -210,6 +216,10 @@ class CondGanTrainer:
                   f"Time: {time.perf_counter() - t0:.2f}s", flush=True)
         return metrics
 
+    def _check_trainable(self) -> None:
+        if self.step_fn is None:
+            make_gan_step(self.cfg, self.clip)  # raises on GAN.B_DCGAN
+
     def _d_loss(self, metrics: Dict[str, float]) -> float:
         return sum(metrics[f"d_loss{i}"] for i in range(len(self.state.ds)))
 
@@ -219,14 +229,19 @@ class CondGanTrainer:
         Every ``TRAIN.SNAPSHOT_INTERVAL`` epochs and after the last it
         writes the full train state, ``Model/netG_epoch_%d.pth`` (the EMA
         weights with G's running statistics), ``Model/netD%d.pth`` and
-        ``Image/G_%d.png``.  SIGTERM or SIGINT ends the step under way,
-        saves the full state with the epoch's permutation and the batches
-        done, and returns; a resumed run takes the rest of that epoch.
-        Returns the last step's metrics."""
-        self._out()
+        ``Image/G_%d.png`` with its attention figure ``G_%d_attn.png``.
+        Every step is a row of ``metrics.jsonl`` (:class:`MetricsLogger`,
+        a console line every 100 steps, ``images_per_sec`` from a
+        :class:`StepTimer`), as in the JAX trainer.  SIGTERM or SIGINT
+        ends the step under way, saves the full state with the epoch's
+        permutation and the batches done, and returns; a resumed run takes
+        the rest of that epoch.  Returns the last step's metrics."""
+        self._check_trainable()
         epochs = max_epochs if max_epochs is not None else \
             self.cfg.TRAIN.MAX_EPOCH
         metrics: Dict[str, float] = {}
+        logger = MetricsLogger(self._out(), print_every=100)
+        timer = StepTimer(self.cfg.TRAIN.BATCH_SIZE)
         stop = GracefulShutdown()
         try:
             for epoch in range(self.epoch, epochs):
@@ -239,10 +254,14 @@ class CondGanTrainer:
                         self.loader.batches(perm, done)), done):
                     out = self.step_fn(self.state, batch,
                                        generator=self.noise)
+                    timer.tick()
+                    logger.log(self.state.step, dict(
+                        out, images_per_sec=timer.images_per_sec))
                     self._data_rng = batch["rng_state"]
                     if stop.requested:
                         self._epoch_left = (perm, i + 1)
                         break
+                logger.flush()
                 metrics = {k: float(v) for k, v in out.items()}
                 if metrics:
                     print(f"[{epoch}/{epochs}] Loss_D: "
@@ -259,6 +278,7 @@ class CondGanTrainer:
                     self.snapshot(epoch)
         finally:
             stop.restore()
+            logger.close()
         return metrics
 
     def save_state(self) -> str:
@@ -280,23 +300,37 @@ class CondGanTrainer:
             save_discriminator_pth(d, self._out("Model", f"netD{i}.pth"))
         self._save_sample_grid(epoch)
 
-    def _save_sample_grid(self, tag) -> None:
+    def _save_sample_grid(self, tag, z: Optional[torch.Tensor] = None
+                          ) -> None:
         """The finest images of the EMA G on the loader's probe batch
         (``peek``: the first ``BATCH_SIZE`` records in dataset order, their
         first captions; no pixel is read and no stream moves), with fixed
-        noise (``z`` from a generator seeded 42, zero ``eps``), as one
-        sheet ``Image/G_<tag>.png``."""
+        noise (``z``, by default from a generator seeded 42; zero
+        ``eps``), as one sheet ``Image/G_<tag>.png``, and the first 8 of
+        them under the
+        last stage's attention maps of their words 1-8 as
+        ``Image/G_<tag>_attn.png`` (:func:`attention_grid`).  The sampler
+        returns the maps, so its memory read runs as einsums, not K1, as
+        the JAX trainer's does."""
         batch = self.loader.peek(with_images=False)
         if batch is None:
             return
         n = len(batch.keys)
-        z = torch.randn((n, self.cfg.GAN.Z_DIM),
-                        generator=torch.Generator().manual_seed(42))
+        if z is None:
+            z = torch.randn((n, self.cfg.GAN.Z_DIM),
+                            generator=torch.Generator().manual_seed(42))
         eps = torch.zeros((n, self.cfg.GAN.CONDITION_DIM))
-        fakes = make_sampler(self.cfg, *self.eval_models())(
+        fakes, atts = make_sampler(self.cfg, *self.eval_models(),
+                                   return_attn=True)(
             batch.input_ids, batch.attention_mask, z, eps)
-        save_image_grid(tanh_to01(fakes[-1].float().cpu().numpy()),
-                        self._out("Image", f"G_{tag}.png"))
+        finest = tanh_to01(fakes[-1].float().cpu().numpy())
+        save_image_grid(finest, self._out("Image", f"G_{tag}.png"))
+        if atts:
+            m = min(n, 8)  # overlay sheet stays readable
+            grid = attention_grid(finest[:m], atts[-1][:m].cpu().numpy(),
+                                  word_labels(self.tokenizer,
+                                              batch.input_ids[:m]))
+            write_png(self._out("Image", f"G_{tag}_attn.png"), grid)
 
     # -------------------------------------------------------- evaluation --
 
@@ -398,16 +432,27 @@ class CondGanTrainer:
         """Images of the EMA G for user captions (``{name: [caption,
         ...]}``, as ``main.load_example_captions`` builds it): each
         stage's images as ``<output_dir>/<name>/<s>_s_<j>_g<k>.png`` for
-        sample ``s``, caption ``j`` and stage ``k``, noise from a generator
-        seeded 0.  The attention grids are not written (ROADMAP.md, Queue
-        1)."""
-        sampler = make_sampler(self.cfg, *self.eval_models())
+        sample ``s``, caption ``j`` and stage ``k``, and stage ``k``'s
+        attention maps over stage ``k + 1``'s images as
+        ``<s>_a<k>.png`` (:func:`attention_grid`), noise from a generator
+        seeded 0.  ``GAN.B_DCGAN`` raises ``NotImplementedError`` before
+        writing anything: the JAX trainer's loop reads an image of the
+        next stage for each map, which ``GDCGan`` (one image, a map per
+        refinement stage) does not have, so it fails there."""
+        if self.cfg.GAN.B_DCGAN:
+            raise NotImplementedError(
+                "gen_example with GAN.B_DCGAN: the JAX trainer's gen_example "
+                "fails on GDCGan too (it pairs attention map k with image "
+                "k + 1, and GDCGan gives one image); ROADMAP.md F20")
+        sampler = make_sampler(self.cfg, *self.eval_models(),
+                               return_attn=True)
         draw = torch.Generator().manual_seed(0)
         for key, captions in captions_by_key.items():
             for s in range(n_samples):
                 sample_and_write(self.cfg, sampler, self.tokenizer, captions,
                                  draw, self._out(key),
-                                 lambda j, k, s=s: f"{s}_s_{j}_g{k}.png")
+                                 lambda j, k, s=s: f"{s}_s_{j}_g{k}.png",
+                                 lambda k, s=s: f"{s}_a{k}.png")
 
 
 def main(argv: Optional[Sequence[str]] = None,

@@ -21,6 +21,13 @@ pictures made from a seed, so they stay small:
 
 ``tests/test_torch_port_decode.py`` checks that the recorded hashes are
 PIL's and that the port decodes every file to them.
+
+It also writes the glyph table of the port's word labels,
+``t2igan_torch/utils/aileron10.npz`` (:func:`glyph_table`: PIL's default
+font, Aileron Regular at size 10, CC0 1.0, with the Pillow version), and
+the attention-grid fixture ``attention_grid.npz`` with the sha256 of the
+JAX package's PIL grid of it in ``fixtures.json``, which ``chip_smoke.py``
+holds the port's grid to (``tests/test_torch_port_viz.py`` checks both).
 """
 
 import hashlib
@@ -35,6 +42,7 @@ import numpy as np
 from PIL import Image, features
 
 OUT = Path(__file__).resolve().parents[1] / "t2igan_torch" / "testdata"
+GLYPHS = OUT.parent / "utils" / "aileron10.npz"
 
 
 def smooth(h: int, w: int, seed: int, texture: float = 0.0) -> np.ndarray:
@@ -195,8 +203,99 @@ def fixtures():
     return files
 
 
+def _mask(m) -> np.ndarray:
+    w, h = m.size
+    return np.array([m.getpixel((x, y)) for y in range(h) for x in range(w)],
+                    np.uint8).reshape(h, w)
+
+
+def glyph_table() -> dict:
+    """The arrays of ``aileron10.npz``: every code point U+0020-U+00FF and
+    every other one of the Basic Multilingual Plane that PIL's default
+    font draws with a glyph of its own (not the missing glyph), then the
+    missing glyph (code point -1); per entry its L coverage mask from
+    ``getmask2`` (concatenated, ``mask_start`` and ``size`` [h, w] index
+    them), its offset and its advance; and the kerned pairs.  Asserts what
+    the port's drawing relies on: whole-pixel advances and kerning, and
+    additive string lengths."""
+    from PIL import ImageFont
+
+    font = ImageFont.load_default()
+    assert isinstance(font, ImageFont.FreeTypeFont) and \
+        font.layout_engine == ImageFont.Layout.BASIC
+    name = " ".join(font.getname())
+
+    def entry(ch):
+        m, off = font.getmask2(ch, "L")
+        adv = font.getlength(ch)
+        assert adv == int(adv), (ch, adv)
+        return _mask(m), tuple(off), int(adv)
+
+    missing = entry("\U0001f600")
+    cps = [cp for cp in range(0x20, 0x10000)
+           if not 0xD800 <= cp < 0xE000
+           and (cp <= 0xFF or not _same(entry(chr(cp)), missing))]
+    entries = [entry(chr(cp)) for cp in cps] + [missing]
+    kern = []
+    for a in cps:
+        la = font.getlength(chr(a))
+        for b in cps:
+            k = font.getlength(chr(a) + chr(b)) - la - font.getlength(chr(b))
+            assert k == int(k), (a, b, k)
+            if k:
+                kern.append((a, b, int(k)))
+    sizes = [m.shape for m, _, _ in entries]
+    return {
+        "codepoints": np.asarray(cps + [-1], np.int32),
+        "mask_data": np.concatenate([m.reshape(-1) for m, _, _ in entries]),
+        "mask_start": np.cumsum([0] + [h * w for h, w in sizes]).astype(
+            np.int32),
+        "size": np.asarray(sizes, np.int32).reshape(-1, 2),
+        "offset": np.asarray([o for _, o, _ in entries], np.int32),
+        "advance": np.asarray([a for _, _, a in entries], np.int32),
+        "kern_pairs": np.asarray(kern, np.int32).reshape(-1, 3),
+        "font": np.asarray(f"{name}, size {font.size}, Pillow's "
+                           "ImageFont.load_default()"),
+        "licence": np.asarray("CC0 1.0 (the Aileron font shipped inside "
+                              "Pillow)"),
+        "pillow": np.asarray(Image.__version__),
+    }
+
+
+def _same(a, b) -> bool:
+    return a[1:] == b[1:] and np.array_equal(a[0], b[0])
+
+
+GRID_LABELS = [["a", "small", "bird", "with", "·", "", "wings", "x"],
+               ["AVATAR", "To", "this·bird", "yellow", "WAVE", "ff", "Tj",
+                "overlong-label-cut"],
+               ["ÀÉîõü", "ß¿¡", "\u2019s", "\ufb01ne", "\u4e2d", "(x)",
+                "/;s,", "ÿ"]]
+
+
+def attention_grid_fixture():
+    """(inputs, labels, sha256 of the JAX package's PIL grid): three 64 px
+    images and [3, 16, 16, 10] maps made from a seed, with a NaN, a zero
+    map and a negative one among them."""
+    sys.path.insert(0, str(OUT.parents[1]))
+    from t2igan.utils.viz import attention_grid
+
+    rng = np.random.default_rng(9)
+    images = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    attn = rng.random((3, 16, 16, 10)).astype(np.float32)
+    attn[0, 3, 4, 1] = np.nan
+    attn[1, :, :, 2] = 0.0
+    attn[2, :, :, 3] *= -1.0
+    grid = attention_grid(images.astype(np.float32) / 255.0, attn,
+                          GRID_LABELS)
+    return ({"images_u8": images, "attn": attn}, GRID_LABELS,
+            hashlib.sha256(np.ascontiguousarray(grid).tobytes()).hexdigest(),
+            list(grid.shape))
+
+
 def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(GLYPHS, **glyph_table())
     record = {"written_by": {
         "PIL": Image.__version__ if hasattr(Image, "__version__")
         else features.version("pil"),
@@ -207,6 +306,13 @@ def main() -> int:
         record["files"][name] = {
             "sha256_rgb": hashlib.sha256(rgb.tobytes()).hexdigest(),
             "shape": list(rgb.shape), "bytes": len(data), "covers": what}
+    inputs, labels, sha, shape = attention_grid_fixture()
+    np.savez_compressed(OUT / "attention_grid.npz", **inputs)
+    record["attention_grid"] = {
+        "file": "attention_grid.npz", "labels": labels, "sha256_grid": sha,
+        "shape": shape, "covers": "t2igan.utils.viz.attention_grid of "
+        "images_u8 / 255 and attn with these labels: PIL's bicubic resize, "
+        "its default font's labels, NaN, zero and negative maps"}
     (OUT / "fixtures.json").write_text(json.dumps(record, indent=1) + "\n")
     total = sum(f["bytes"] for f in record["files"].values())
     print(f"{len(record['files'])} fixtures, {total} bytes, in {OUT}")

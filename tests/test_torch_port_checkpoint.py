@@ -18,6 +18,7 @@ one, bitwise.
 import copy
 import dataclasses
 import functools
+import json
 import os
 import signal
 
@@ -352,20 +353,27 @@ def test_reference_loaders_raise(net, kind, error):
         load(copy.deepcopy(module), _break(kind, sd))
 
 
-def test_reference_loaders_take_the_dataparallel_prefix_and_refuse_dcgan():
-    gen = _random_port_gen(TCFG, 3)
+@pytest.mark.parametrize("dcgan", [False, True])
+def test_reference_loaders_take_the_dataparallel_prefix_and_refuse_dcgan(
+        dcgan):
+    """A ``G_NET`` (or, under ``GAN.B_DCGAN``, ``G_DCGAN``) dict with
+    DataParallel's prefix reads back bitwise; another ``R_NUM`` raises,
+    and so does the other generator class's dict, naming the config
+    key."""
+    cfg = tconfig.cfg_replace(TCFG, GAN={"B_DCGAN": dcgan})
+    other = tconfig.cfg_replace(TCFG, GAN={"B_DCGAN": not dcgan})
+    gen = _random_port_gen(cfg, 3)
+    assert type(gen).__name__ == ("GDCGan" if dcgan else "GNet")
     sd = {f"module.{k}": v for k, v in
           generator_reference_state_dict(gen).items()}
+    assert ("module.img_net.img.0.weight" in sd) == dcgan
     _assert_same_modules(load_reference_generator_state(
-        build_generator(TCFG), sd), gen)
+        build_generator(cfg), sd), gen)
     with pytest.raises(KeyError):  # another R_NUM
         load_reference_generator_state(build_generator(
-            tconfig.cfg_replace(TCFG, GAN={"R_NUM": 2})), sd)
-    sd["module.img_net.img.0.weight"] = torch.zeros(3, 8, 3, 3)
-    with pytest.raises(NotImplementedError, match="GDCGan"):
-        load_reference_generator_state(build_generator(TCFG), sd)
-    with pytest.raises(NotImplementedError):
-        build_generator(tconfig.cfg_replace(TCFG, GAN={"B_DCGAN": True}))
+            tconfig.cfg_replace(cfg, GAN={"R_NUM": 2})), sd)
+    with pytest.raises(ValueError, match="GAN.B_DCGAN"):
+        load_reference_generator_state(build_generator(other), sd)
 
 
 @pytest.mark.parametrize("path", [
@@ -443,7 +451,14 @@ def test_gan_resume_is_bitwise(tmp_path, straight):
         assert model == ["netD0.pth", "netD1.pth", "netG_epoch_0.pth",
                          "netG_epoch_1.pth", "state_00000002.pt",
                          "state_00000004.pt"]
-        assert sorted(os.listdir(out / "Image")) == ["G_0.png", "G_1.png"]
+        assert sorted(os.listdir(out / "Image")) == [
+            "G_0.png", "G_0_attn.png", "G_1.png", "G_1_attn.png"]
+    rows = [[{k: v for k, v in json.loads(line).items()
+              if k not in ("time", "sec_per_step", "images_per_sec")}
+             for line in open(out / "metrics.jsonl")]
+            for out in (straight[1], tmp_path / "b")]
+    assert [r["step"] for r in rows[1]] == [1, 2, 3, 4]
+    assert rows[0] == rows[1]
 
 
 @pytest.mark.parametrize("stop_after", [1, 2, 3])

@@ -120,6 +120,34 @@ def test_step_metrics(jax_step, port_step):
                                    atol=1e-5, err_msg=k)
 
 
+def test_step_metrics_rows_match_the_jax_logger(jax_step, port_step,
+                                                tmp_path):
+    """The step's metrics through each package's ``MetricsLogger`` (the
+    port's as 0-dim tensors, the step's return type): rows with the same
+    keys, values within the step bound above."""
+    import json
+
+    from t2igan.utils.logging import MetricsLogger as JLogger
+    from t2igan_torch.utils.logging import MetricsLogger
+
+    rows = []
+    for logger, metrics in (
+            (JLogger(str(tmp_path / "jax")), jax_step["metrics"]),
+            (MetricsLogger(str(tmp_path / "port")),
+             {k: torch.tensor(v) for k, v in port_step[1].items()})):
+        logger.log(1, dict(metrics, images_per_sec=3.0))
+        logger.close()
+        with open(logger.path) as f:
+            rows.append(json.loads(f.read()))
+    want, got = rows
+    assert list(got) == ["step", "time", "prefix"] + list(port_step[1]) + [
+        "images_per_sec"]
+    assert set(got) == set(want)
+    for k in set(want) - {"time", "prefix"}:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
 def test_step_generator_and_batch_stats(jax_step, port_step):
     state, _ = port_step
     after = jax_step["after"]

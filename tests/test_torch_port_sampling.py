@@ -142,15 +142,37 @@ def test_sampling_stops_at_the_target(sweeps, capsys):
     assert not os.path.exists(os.path.join(pt.output_dir, "valid_stop"))
 
 
+def test_snapshot_figures_match_jax(sweeps):
+    """The sample sheet ``Image/G_<tag>.png`` and its attention figure
+    ``G_<tag>_attn.png`` of both trainers on the same weights, probe batch
+    and ``z`` (the JAX trainer's draw): the same size and labels, each
+    uint8 within 1 count (the images and maps agree to 1e-4; truncation
+    can fall either side of a boundary) at under 0.5% of the entries."""
+    _, jt, pt = sweeps
+    jt._save_sample_grid(9)
+    n = len(pt.loader.peek(with_images=False).keys)
+    pt._save_sample_grid(9, z=torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(42), (n, JCFG.GAN.Z_DIM)))))
+    for name in ("G_9.png", "G_9_attn.png"):
+        want = np.asarray(Image.open(os.path.join(jt.output_dir, "Image",
+                                                  name)))
+        got = np.asarray(Image.open(os.path.join(pt.output_dir, "Image",
+                                                 name)))
+        assert got.shape == want.shape, name
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.005, name
+    assert got.shape == (4 * 110, 9 * 96, 3)
+
+
 def test_gen_example_writes_the_jax_file_names(sweeps):
     _, jt, pt = sweeps
     captions = {"demo": ["a bird with red wings", "a small blue bird"]}
     jt.gen_example(captions, n_samples=2)
     pt.gen_example(captions, n_samples=2)
-    jnames = {n for n in os.listdir(os.path.join(jt.output_dir, "demo"))
-              if "_a" not in n}  # the attention grids are not ported
+    jnames = set(os.listdir(os.path.join(jt.output_dir, "demo")))
     pnames = set(os.listdir(os.path.join(pt.output_dir, "demo")))
-    assert pnames == jnames and len(pnames) == 8
+    assert pnames == jnames and len(pnames) == 10
+    assert {"0_a0.png", "1_a0.png"} <= pnames
     img = np.asarray(Image.open(os.path.join(pt.output_dir, "demo",
                                              "1_s_1_g1.png")))
     assert img.shape == (128, 128, 3)
@@ -189,7 +211,7 @@ def test_main_runs_train_sampling_and_examples_on_cpu(tmp_path, capsys,
     assert trainer.state.step == 2  # 64 records, batch 32
     assert sorted(os.listdir(out / "Model")) == [
         "netD0.pth", "netD1.pth", "netG_epoch_0.pth", "state_00000002.pt"]
-    assert os.listdir(out / "Image") == ["G_0.png"]
+    assert sorted(os.listdir(out / "Image")) == ["G_0.png", "G_0_attn.png"]
 
     # B_VALIDATION: the sweep from the trained netG_epoch_0.pth (one round
     # of few mis-captions, to keep the test short).
@@ -231,8 +253,9 @@ def test_main_runs_train_sampling_and_examples_on_cpu(tmp_path, capsys,
                 "--output_dir", str(ex), "--device", "cpu"],
                clip_cfg=clip_cfg)
     assert sorted(os.listdir(ex / "one")) == [
-        "0_s_0_g0.png", "0_s_0_g1.png", "0_s_1_g0.png", "0_s_1_g1.png"]
-    assert sorted(os.listdir(ex / "two")) == ["0_s_0_g0.png",
+        "0_a0.png", "0_s_0_g0.png", "0_s_0_g1.png", "0_s_1_g0.png",
+        "0_s_1_g1.png"]
+    assert sorted(os.listdir(ex / "two")) == ["0_a0.png", "0_s_0_g0.png",
                                               "0_s_0_g1.png"]
 
 
