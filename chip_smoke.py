@@ -107,6 +107,26 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    CnnEncoder, GlobalAttentionText) at the reference's widths, card
    against CPU, timed.
 
+9. (after phase 8) data and tensor parallelism on the one card.  NCCL
+   refuses two ranks on one card, so the multi-rank runs use gloo with
+   both ranks on cuda:0 (``t2igan_torch.parallel.mesh.spawn_local``), and
+   NCCL runs at world size 1: (9a) ``python -m torch.distributed.run
+   --nproc_per_node 1 -m t2igan_torch.train_gan`` at clip_bird_dmgan.yml's
+   full width, 3 bf16 steps, 4 K1 + 4 K2 launches a step; the f32 step
+   under a one-rank NCCL group bitwise equal to the step without a group
+   (deterministic algorithms); (9b) two ranks: the f32 GAN step over a
+   global batch of 4 against one process on the same 4 rows from the
+   ranks' weights (after SGD lr 0.01: metrics 1e-4 relative; every
+   parameter and buffer within 1e-4 + 1e-4 |x|, a parameter within 1e-3
+   of its module's largest change), the ranks' states bitwise
+   equal after 3 steps, 4 K1 + 4 K2 per rank per step, and the f32 DAMSM
+   loss and gradients at damsm/bird.yml's width against one process (the
+   CPU test's bounds); (9c) ``sampling()`` over two ranks in both tails:
+   the one-process sweep's hits, R and PNG names, pixels within 1;
+   (9d) ViT-B/32 tensor-parallel over the two ranks against the
+   replicated CLIP; (9e) the bf16 step at batch 16 with and without the
+   one-rank NCCL group, in turns, and the two-rank gloo step, timed.
+
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the process
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -2445,6 +2465,615 @@ def check_legacy_encoders(card):
                   torch.randn((b, t, 256), generator=g), pad], 1e-5)
 
 
+# ------------------------------------------------------------- phase 9 --
+# Data and tensor parallelism.  NCCL refuses two ranks on one card, so on
+# a one-card machine the multi-rank runs use gloo with every rank on
+# cuda:0, and NCCL runs at world size 1.  The rank programs below are
+# module-level functions, which t2igan_torch.parallel.mesh.spawn_local
+# starts in processes of their own.
+
+P9_SEED = 7
+
+
+def p9_gan_cfg(batch):
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import CLIP_BIRD_DMGAN
+    return cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
+                       TRAIN={"BATCH_SIZE": batch})
+
+
+def p9_inputs(b, z_dim, c_dim, eos):
+    """A global GAN batch of ``b`` rows (the bench's images and caption
+    ids, class ids with a same-class pair across the middle) and its z,
+    eps1, eps2, all from fixed seeds, on the CPU."""
+    import numpy as np
+    import torch
+
+    from t2igan_torch.data.synthetic import bench_train_batches
+
+    batch = bench_train_batches(b, eos)[0]
+    batch["class_ids"] = (np.arange(b, dtype=np.int32) + 1) // 2
+    g = torch.Generator().manual_seed(P9_SEED)
+    noise = [torch.randn((b, d), generator=g) for d in (z_dim, c_dim, c_dim)]
+    return batch, noise
+
+
+def p9_rows(x, mesh):
+    """This rank's rows of an array, a list of arrays or a batch dict."""
+    if isinstance(x, dict):
+        return {k: p9_rows(v, mesh) for k, v in x.items()}
+    if isinstance(x, list):
+        return [p9_rows(v, mesh) for v in x]
+    b = x.shape[0] // mesh.world
+    return x[mesh.rank * b:(mesh.rank + 1) * b]
+
+
+def p9_gan_f32(mesh, steps, start=None):
+    """One f32 step (SGD lr 0.01, TF32 off) of the clip_bird_dmgan.yml
+    trainer at full width on this rank's rows of a global batch of 4, then
+    ``steps - 1`` more with drawn noise; from the trainer's seeded G and
+    Ds, or from ``start`` (their state dicts, as ``before`` gives them).
+    Returns the metrics, the state before, after the first and after the
+    last step and the gradients of the first (CPU copies, modules G, EMA
+    G, D0-D2), each module's parameter names, and the launches per
+    step."""
+    import functools
+
+    import torch
+
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.state import init_gan_state
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = p9_gan_cfg(4)
+    trainer = CondGanTrainer(cfg, "cuda", torch.float32, seed=0, mesh=mesh)
+    if start is not None:
+        for m, sd in zip((trainer.state.gen, *trainer.state.ds),
+                         start[:1] + start[2:]):
+            m.load_state_dict(sd)
+    sgd = functools.partial(torch.optim.SGD, lr=0.01)
+    state = init_gan_state(cfg, trainer.state.gen, trainer.state.ds, sgd, sgd)
+    batch, noise = p9_inputs(4, cfg.GAN.Z_DIM, cfg.GAN.CONDITION_DIM,
+                             trainer.clip.cfg.eos_token_id)
+    local = p9_rows(batch, trainer.mesh)
+    modules = (state.gen, state.gen_ema, *state.ds)
+
+    def tensors():
+        return [{k: t.detach().cpu().clone()
+                 for k, t in m.state_dict().items()} for m in modules]
+
+    launches, before = [], tensors()
+    for i in range(steps):
+        LAUNCHES.clear()
+        if i == 0:
+            metrics = trainer.step_fn(state, local, *noise)
+            first = tensors()
+            grads = [{n: p.grad.cpu() for n, p in m.named_parameters()
+                      if p.grad is not None} for m in modules]
+        else:
+            trainer.step_fn(state, local, generator=trainer.noise)
+        torch.cuda.synchronize()
+        launches.append(dict(LAUNCHES))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "before": before, "after": first, "grads": grads,
+            "params": [[n for n, _ in m.named_parameters()]
+                       for m in modules],
+            "last": tensors(), "launches": launches}
+
+
+def p9_bf16_step(mesh, batch):
+    """The bf16 GAN step of a fresh trainer on this rank's rows of the
+    bench's batches of ``batch``, as a function of no arguments, and the
+    K1/K2 launches of its first call."""
+    import torch
+
+    from t2igan_torch.data.synthetic import bench_train_batches
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    cfg = p9_gan_cfg(batch)
+    trainer = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0, mesh=mesh)
+    batches = [{k: ([torch.as_tensor(x, device=trainer.device) for x in v]
+                    if k == "images" else torch.as_tensor(
+                        v, device=trainer.device))
+                for k, v in p9_rows(b, trainer.mesh).items()}
+               for b in bench_train_batches(batch,
+                                            trainer.clip.cfg.eos_token_id)]
+    it = [0]
+
+    def step():
+        trainer.step_fn(trainer.state, batches[it[0] % 8],
+                        generator=trainer.noise)
+        it[0] += 1
+
+    LAUNCHES.clear()
+    step()
+    torch.cuda.synchronize()
+    return step, dict(LAUNCHES)
+
+
+def p9_world1(mesh):
+    """NCCL at world size 1: the f32 step of a trainer with the one-rank
+    NCCL group against the same step without a group, twice (the card's
+    own run-to-run agreement), and the bf16 b16 step timed both ways.
+    The f32 steps run with PyTorch's deterministic algorithms (cuDNN's
+    and cuBLAS's own choices otherwise differ from run to run, so two
+    runs of one step need not agree bit for bit); the timed steps
+    without."""
+    import torch
+
+    from t2igan_torch.parallel.mesh import DataMesh
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    plain = DataMesh.single(mesh.device)
+    out = {"plain": p9_gan_f32(plain, 1), "nccl": p9_gan_f32(mesh, 1),
+           "plain_again": p9_gan_f32(plain, 1)}
+    torch.use_deterministic_algorithms(False)
+    steps = {}
+    for name, m in (("plain", plain), ("nccl", mesh)):
+        steps[name], out[f"launches_{name}"] = p9_bf16_step(m, TRAIN_BATCH)
+    out["ms"] = {name: [] for name in steps}
+    for name in ("plain", "nccl", "nccl", "plain"):  # in turns
+        out["ms"][name].append(cuda_ms(steps[name], iters=10))
+    return out
+
+
+def p9_dp(mesh):
+    """Two gloo ranks on cuda:0: the f32 GAN step over a global batch of 4
+    (3 steps), the f32 DAMSM step at damsm/bird.yml's width over a global
+    batch of 4, and the bf16 GAN step over the bench's batch of 16
+    timed."""
+    out = {"gan": p9_gan_f32(mesh, 3), "damsm": p9_damsm_f32(mesh)}
+    step, out["launches_bf16"] = p9_bf16_step(mesh, TRAIN_BATCH)
+    out["ms"] = cuda_ms(step, iters=10)
+    return out
+
+
+def p9_hold(dp, single):
+    """The f32 GAN step over the ranks (``dp``, each rank's result of
+    p9_dp or p9_cards) against one process (mesh ``single``) on the same
+    4 rows and from the ranks' weights: the orthogonal initializer's QR
+    rounds differently at another thread count, so a process that drew
+    its own would start elsewhere (ROADMAP F29).  After SGD lr 0.01:
+    every parameter and buffer within 1e-4 + 1e-4 |x| (the CPU test's
+    bound), each parameter within 1e-3 of its module's largest change
+    (phase 4's measure), the metrics within 1e-4 relative; the ranks
+    bitwise equal and finite after 3 steps, with 4 K1 + 4 K2 per rank
+    per step.  The gap to each tensor's own largest change and gradient
+    is printed, not held: a gradient that sums to near zero (a D conv
+    bias) keeps only the f32 rounding of its terms, which
+    ``python -m t2igan_torch.dp_rounding`` shows falls to ~1e-13 in f64.
+    Returns (whether all hold, a line to print)."""
+    import torch
+
+    from t2igan_torch.dp_rounding import gaps
+
+    one = p9_gan_f32(single, 1, start=dp[0]["gan"]["before"])
+    worst = gaps([r["gan"] for r in dp], one,
+                 ("g", "g_ema", "d0", "d1", "d2"))
+    last = [r["gan"]["last"] for r in dp]
+    equal = all(torch.equal(a[k], b[k]) for r in last[1:]
+                for a, b in zip(last[0], r) for k in a) and all(
+        bool(torch.isfinite(t).all()) for r in last for m in r
+        for t in m.values())
+    per_step = [c for r in dp for c in r["gan"]["launches"]]
+    launches_ok = all(c.get("memory_read_fwd") == 4
+                      and c.get("memory_read_bwd") == 4 for c in per_step)
+    ok = (all(worst[k][0] <= 1 for k in ("metrics", "abs_rel",
+                                          "module_change"))
+          and equal and launches_ok)
+    return ok, ("SGD lr 0.01, gap / bound: " + ", ".join(
+        f"{k} {v:.3e} ({where})" for k, (v, where) in sorted(worst.items()))
+        + " (held to 1: metrics, abs_rel, module_change); ranks bitwise "
+        f"equal and finite after 3 steps {equal}; launches per rank per "
+        f"step {per_step[:3]}")
+
+
+def p9_damsm_inputs(b, eos):
+    """A DAMSM batch of ``b`` rows at 224 px: random captions of 30 tokens
+    of varied length, class ids with a same-class pair across the
+    middle."""
+    import numpy as np
+
+    rng = np.random.default_rng(P9_SEED)
+    views = []
+    for _ in range(2):
+        ids = np.full((b, 30), eos, np.int32)
+        mask = np.zeros((b, 30), np.int32)
+        for i, n in enumerate(rng.integers(6, 31, b)):
+            ids[i, 0] = eos - 1
+            ids[i, 1:n - 1] = rng.integers(1, 40000, n - 2)
+            mask[i, :n] = 1
+        views.append((ids, mask))
+    return {"images": rng.standard_normal((b, 224, 224, 3)).astype(
+                np.float32),
+            "ids": views[0][0], "mask": views[0][1],
+            "ids_2": views[1][0], "mask_2": views[1][1],
+            "class_ids": (np.arange(b, dtype=np.int32) + 1) // 2}
+
+
+def p9_damsm_f32(mesh):
+    """The f32 DAMSM loss and its rank-averaged gradients (TF32 off) at
+    damsm/bird.yml's width on this rank's rows of a global batch of 4,
+    then one DAMSM step; CPU copies."""
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import DAMSM_BIRD
+    from t2igan_torch.models.clip import init_clip_
+    from t2igan_torch.models.factory import build_clip
+    from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
+    from t2igan_torch.train.steps import make_damsm_loss, make_damsm_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD), TRAIN={"BATCH_SIZE": 4})
+
+    def fresh():
+        clip = init_clip_(build_clip(), torch.Generator().manual_seed(0))
+        return clip.to(mesh.device).requires_grad_(True)
+
+    clip = fresh()
+    batch = {k: torch.as_tensor(v, device=mesh.device) for k, v in
+             p9_rows(p9_damsm_inputs(4, clip.cfg.eos_token_id),
+                     mesh).items()}
+    total, metrics = make_damsm_loss(cfg, clip, mesh=mesh)(batch)
+    params = list(clip.parameters())
+    for p, g in zip(params, torch.autograd.grad(total, params,
+                                                allow_unused=True)):
+        p.grad = g
+    mesh.all_reduce_grads_(params)
+    grads = {n: None if p.grad is None else p.grad.cpu()
+             for n, p in clip.named_parameters()}
+    del clip
+    state = init_damsm_state(cfg, fresh(), damsm_optimizer(cfg, 100))
+    step = make_damsm_step(cfg, state.clip, state.opt, mesh=mesh)(batch)
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "grads": grads,
+            "step": {k: v.item() for k, v in step.items()},
+            "after": {k: v.detach().cpu() for k, v in
+                      state.clip.state_dict().items()}}
+
+
+def p9_sweep(mesh, out):
+    """sampling() one round at eval_clip_bird.yml's widths and batch of 10
+    in f32 (TF32 off), both tail settings, into ``out``/<tail>: R, the
+    hits, the PNGs by name (rank 0 reads them) and the launches per
+    sampler call."""
+    import numpy as np
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import EVAL_CLIP_BIRD
+    from t2igan_torch.data import native
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for fused in (False, True):
+        tail = "fused" if fused else "plain"
+        ev = CondGanTrainer(cfg_replace(cfg_from_dict(EVAL_CLIP_BIRD),
+                                        GAN={"FUSED_TAIL": fused}),
+                            "cuda", torch.float32, seed=100,
+                            output_dir=os.path.join(out, tail), split="test",
+                            mesh=mesh)
+        LAUNCHES.clear()
+        r = ev.sampling("valid", num_rounds=1)
+        torch.cuda.synchronize()
+        calls = len(ev.dataset) // ev.cfg.TRAIN.BATCH_SIZE
+        pngs = {}
+        if ev.mesh.rank == 0:
+            single = os.path.join(out, tail, "valid", "single")
+            for d, _, files in os.walk(single):
+                for f in files:
+                    path = os.path.join(d, f)
+                    pngs[os.path.relpath(path, single)] = np.asarray(
+                        native.decode_image(path))
+        res[tail] = {"r": r, "hits": list(ev.sweep_hits), "pngs": pngs,
+                     "launches": {k: v / calls for k, v in LAUNCHES.items()}}
+    return res
+
+
+def p9_tp(mesh):
+    """CLIP ViT-B/32 tensor-parallel over the two ranks (model axis 2):
+    the f32 DAMSM loss (TF32 off) on a batch of 4 and its gradients,
+    beside the replicated module's on the same rank."""
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import DAMSM_BIRD
+    from t2igan_torch.models.clip import init_clip_
+    from t2igan_torch.models.factory import build_clip
+    from t2igan_torch.parallel import tp
+    from t2igan_torch.train.steps import make_damsm_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD), TRAIN={"BATCH_SIZE": 4})
+    clip = init_clip_(build_clip(), torch.Generator().manual_seed(0)).to(
+        mesh.device).requires_grad_(True)
+    batch = {k: torch.as_tensor(v, device=mesh.device) for k, v in
+             p9_damsm_inputs(4, clip.cfg.eos_token_id).items()}
+
+    def loss_and_grads(module, data):
+        total, metrics = make_damsm_loss(cfg, module, mesh=data)(batch)
+        params = list(module.parameters())
+        for p, g in zip(params, torch.autograd.grad(total, params,
+                                                    allow_unused=True)):
+            p.grad = g
+        return metrics
+
+    ref = loss_and_grads(clip, None)
+    ref_grads = {n: None if p.grad is None else p.grad.clone()
+                 for n, p in clip.named_parameters()}
+    data, group = tp.mesh_2d(mesh, 2)
+    tp.shard_clip_(clip, group)
+    got = loss_and_grads(clip, data)
+    tp.all_reduce_grads_(clip, data)
+    m = torch.distributed.get_rank(group)
+    worst = {"loss": max(abs(got[k].item() - ref[k].item())
+                         / max(1.0, abs(ref[k].item())) for k in ref)}
+    for n, p in clip.named_parameters():
+        if ref_grads[n] is None:
+            continue
+        want = tp.shard_tensor(n, ref_grads[n], m, 2)
+        scale = max(1.0, want.abs().max().item())
+        worst[n] = ((p.grad - want).abs()
+                    / (1e-4 * (scale + want.abs()))).max().item()
+    heads = [layer.self_attn.num_heads for layer in clip.text_model.layers]
+    return {"worst": worst, "heads": heads,
+            "metrics": {k: v.item() for k, v in got.items()}}
+
+
+def p9_damsm_step(mesh, batch):
+    """The bf16 DAMSM step at damsm/bird.yml's width on this rank's rows
+    of the bench's DAMSM batch of ``batch``, as a function of no
+    arguments."""
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict, cfg_replace
+    from t2igan_torch.configs import DAMSM_BIRD
+    from t2igan_torch.data.synthetic import bench_damsm_batch
+    from t2igan_torch.models.clip import init_clip_
+    from t2igan_torch.models.factory import build_clip
+    from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
+    from t2igan_torch.train.steps import make_damsm_step
+
+    cfg = cfg_replace(cfg_from_dict(DAMSM_BIRD), TRAIN={"BATCH_SIZE": batch})
+    clip = init_clip_(build_clip(), torch.Generator().manual_seed(0))
+    state = init_damsm_state(cfg, clip.to(mesh.device),
+                             damsm_optimizer(cfg, steps_per_epoch=100))
+    step = make_damsm_step(cfg, state.clip, state.opt, torch.bfloat16, mesh)
+    inputs = {k: torch.as_tensor(v, device=mesh.device) for k, v in p9_rows(
+        bench_damsm_batch(batch, clip.cfg.eos_token_id), mesh).items()}
+    return lambda: step(inputs)
+
+
+def p9_cards(mesh):
+    """One rank a card over NCCL: the f32 GAN step over a global batch of
+    4 (3 steps), and the bf16 GAN step (global batch 16) and DAMSM step
+    (global batch 48) timed."""
+    out = {"gan": p9_gan_f32(mesh, 3)}
+    step, out["launches_bf16"] = p9_bf16_step(mesh, TRAIN_BATCH)
+    out["ms"] = cuda_ms(step, iters=10)
+    out["damsm_ms"] = cuda_ms(p9_damsm_step(mesh, 48), iters=10)
+    return out
+
+
+def drive_parallel_cards(card, n):
+    """Data parallelism over NCCL on ``n`` cards of one host (not part of
+    the one-card run): ``torchrun --nproc_per_node n -m
+    t2igan_torch.train_gan`` for 3 bf16 steps at a batch of 16; the f32
+    GAN step over ``n`` ranks against one process on the same 4 rows (9b's
+    bounds) and the ranks bitwise equal after 3 steps; the bf16 GAN step
+    at a global batch of 16 and the DAMSM step at 48, each beside the same
+    step in one process on one card."""
+    import tempfile
+
+    from t2igan_torch.parallel.mesh import DataMesh, spawn_local
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), "-m", "t2igan_torch.train_gan", "--cfg",
+         "t2igan_torch/configs/clip_bird_dmgan.yml", "--steps", "3",
+         "--dtype", "bf16", "--batch", str(TRAIN_BATCH)], cwd=here,
+        capture_output=True, text=True, timeout=900)
+    steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    launches = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("kernel launches: ")]
+    print(f"parallel cards: torchrun --nproc_per_node {n} -m t2igan_torch."
+          f"train_gan, batch {TRAIN_BATCH}, 3 bf16 steps over NCCL in "
+          f"{time.perf_counter() - t0:.1f} s: exit {proc.returncode}; "
+          f"{steps}; rank 0 {launches}")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise AssertionError("train_gan over NCCL failed")
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        res = spawn_local(p9_cards, n, "nccl", "cuda",
+                          os.path.join(tmp, "store"), 900)
+    ok, text = p9_hold(res, DataMesh.single("cuda"))
+    print(f"parallel cards: {n} NCCL ranks, f32 GAN step at full width over "
+          f"a global batch of 4 vs one process: {text} "
+          f"{'ok' if ok else 'FAIL'}")
+    plain = DataMesh.single("cuda")
+    gan_one = cuda_ms(p9_bf16_step(plain, TRAIN_BATCH)[0], iters=10)
+    damsm_one = cuda_ms(p9_damsm_step(plain, 48), iters=10)
+    print(f"[{card}] parallel cards: bf16 GAN step, global batch "
+          f"{TRAIN_BATCH}: {n} NCCL ranks {res[0]['ms']:.3f} ms/step "
+          f"({TRAIN_BATCH * 1000.0 / res[0]['ms']:.1f} images/s), one card "
+          f"{gan_one:.3f} ms/step; bf16 DAMSM step, global batch 48: {n} "
+          f"ranks {res[0]['damsm_ms']:.3f} ms/step, one card "
+          f"{damsm_one:.3f} ms/step")
+    if not ok:
+        raise AssertionError("NCCL data parallelism disagrees")
+
+
+def drive_parallel(card):
+    """Phase 9: data and tensor parallelism on the one card (9a-9e in the
+    module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from t2igan_torch.parallel.mesh import DataMesh, spawn_local
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+
+    # 9a: the entry point under torchrun at world size 1.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "t2igan_torch.train_gan", "--cfg",
+         "t2igan_torch/configs/clip_bird_dmgan.yml", "--steps", "3",
+         "--dtype", "bf16"], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("kernel launches: ")]
+    counts = json.loads(lines[-1].split(": ", 1)[1]) if lines else {}
+    ok = (proc.returncode == 0 and counts.get("memory_read_fwd") == 12
+          and counts.get("memory_read_bwd") == 12
+          and counts.get("reschain", 0) == 0)
+    print(f"parallel 9a: torchrun --nproc_per_node 1 -m t2igan_torch."
+          f"train_gan, clip_bird_dmgan.yml, 3 bf16 steps in "
+          f"{time.perf_counter() - t0:.1f} s: exit {proc.returncode}, "
+          f"launches {counts} (want 12 + 12, 4 + 4 a step) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise AssertionError("train_gan under torchrun failed")
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        # 9a/9e: the one-rank NCCL group.
+        t0 = time.perf_counter()
+        w1 = spawn_local(p9_world1, 1, "nccl", "cuda",
+                         os.path.join(tmp, "store_w1"), 600)[0]
+        def differ(x, y):
+            """(tensor, max abs diff) where two runs' states differ."""
+            return [(k, (a[k] - b[k]).abs().max().item())
+                    for a, b in zip(x["after"], y["after"]) for k in a
+                    if not torch.equal(a[k], b[k])]
+
+        diff, repeat = differ(w1["plain"], w1["nccl"]), differ(
+            w1["plain"], w1["plain_again"])
+        same = not diff and w1["plain"]["metrics"] == w1["nccl"]["metrics"]
+        print(f"parallel 9a: NCCL group of one rank, f32 step at full width "
+              f"(batch 4, SGD lr 0.01, TF32 off, deterministic algorithms) "
+              f"vs "
+              f"the same step without a group: bitwise {same} "
+              f"({len(diff)} tensors differ {diff[:3]}); the plain step "
+              f"against itself: {len(repeat)} differ {repeat[:3]}; "
+              f"{time.perf_counter() - t0:.1f} s {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("the world-1 NCCL step differs from the "
+                                 "step without a group")
+        for name in ("plain", "nccl"):
+            c = w1[f"launches_{name}"]
+            if c.get("memory_read_fwd") != 4 or c.get("memory_read_bwd") != 4:
+                raise AssertionError(f"{name} bf16 step launched {c}")
+        ms = w1["ms"]
+        print(f"[{card}] parallel 9e: bf16 train step batch {TRAIN_BATCH}, "
+              f"in turns (no group, group, group, no group): no group "
+              + " / ".join(f"{v:.3f}" for v in ms["plain"])
+              + " ms/step, NCCL group of one "
+              + " / ".join(f"{v:.3f}" for v in ms["nccl"])
+              + f" ms/step (launches a step {w1['launches_nccl']})")
+
+        # 9b: two gloo ranks on cuda:0 against one process on the card.
+        t0 = time.perf_counter()
+        dp = spawn_local(p9_dp, 2, "gloo", "cuda:0",
+                         os.path.join(tmp, "store_dp"), 900)
+        spawn_s = time.perf_counter() - t0
+        ok, text = p9_hold(dp, DataMesh.single("cuda"))
+        print(f"parallel 9b: 2 gloo ranks on cuda:0, f32 GAN step at full "
+              f"width, global batch 4 vs one process on the batch of 4: "
+              f"{text} ({spawn_s:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("2-rank GAN step disagrees")
+        ref = p9_damsm_f32(DataMesh.single("cuda"))
+        worst_dm = max(abs(r["damsm"]["metrics"][k] - ref["metrics"][k])
+                       / max(1.0, abs(ref["metrics"][k]))
+                       for r in dp for k in ref["metrics"])
+        worst_dg = 0.0
+        for r in dp:
+            for n, w in ref["grads"].items():
+                g = r["damsm"]["grads"][n]
+                if w is None:
+                    continue
+                scale = max(1.0, w.abs().max().item())
+                worst_dg = max(worst_dg, ((g - w).abs()
+                                          / (1e-4 * (scale + w.abs())))
+                               .max().item())
+        d_equal = all(torch.equal(dp[0]["damsm"]["after"][k],
+                                  dp[1]["damsm"]["after"][k])
+                      for k in ref["after"])
+        ok = worst_dm <= 1e-4 and worst_dg <= 1.0 and d_equal
+        print(f"parallel 9b: 2 gloo ranks, f32 DAMSM loss at damsm/bird.yml "
+              f"width, global batch 4 vs one process: worst metric rel diff "
+              f"{worst_dm:.3e} (bound 1e-4), worst |g - w| / (1e-4 (max(1, "
+              f"max |w|) + |w|)) {worst_dg:.3e} (bound 1); CLIP after the "
+              f"step bitwise equal on both ranks {d_equal} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("2-rank DAMSM step disagrees")
+        print(f"[{card}] parallel 9e: bf16 train step, 2 gloo ranks on one "
+              f"card (collectives through host memory), global batch "
+              f"{TRAIN_BATCH}: {dp[0]['ms']:.3f} ms/step (launches a step "
+              f"per rank {dp[0]['launches_bf16']})")
+
+        # 9c: the sweep over two ranks against one process.
+        t0 = time.perf_counter()
+        sw = spawn_local(p9_sweep, 2, "gloo", "cuda:0",
+                         os.path.join(tmp, "store_sw"), 900,
+                         (os.path.join(tmp, "sweep2"),))
+        spawn_s = time.perf_counter() - t0
+        ref = p9_sweep(DataMesh.single("cuda"), os.path.join(tmp, "sweep1"))
+        for tail in ("plain", "fused"):
+            a, b = sw[0][tail], ref[tail]
+            same_names = sorted(a["pngs"]) == sorted(b["pngs"])
+            px = max((np.abs(a["pngs"][k].astype(np.int16)
+                             - b["pngs"][k].astype(np.int16)).max()
+                      for k in b["pngs"]), default=0) if same_names else -1
+            ok = (a["r"] == b["r"] and a["hits"] == b["hits"] ==
+                  sw[1][tail]["hits"] and same_names and 0 <= px <= 1)
+            print(f"parallel 9c: sampling() {tail} tail over 2 gloo ranks vs "
+                  f"one process, eval_clip_bird.yml batch 10, f32: R "
+                  f"{a['r'][0]:.4f}/{b['r'][0]:.4f}, {len(a['hits'])} hits "
+                  f"equal {a['hits'] == b['hits']}, {len(a['pngs'])} PNG "
+                  f"names equal {same_names}, worst pixel {px}; launches a "
+                  f"sampler call per rank {sw[0][tail]['launches']} "
+                  f"({spawn_s:.1f} s for both tails) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("2-rank sweep differs")
+
+        # 9d: tensor parallelism of ViT-B/32 over the two ranks.
+        t0 = time.perf_counter()
+        tpr = spawn_local(p9_tp, 2, "gloo", "cuda:0",
+                          os.path.join(tmp, "store_tp"), 600)
+        loss = max(r["worst"].pop("loss") for r in tpr)
+        worst = max(max(r["worst"].values()) for r in tpr)
+        top = max(tpr[0]["worst"], key=tpr[0]["worst"].get)
+        ok = loss <= 1e-5 and worst <= 1.0 and tpr[0]["heads"][0] == 4
+        print(f"parallel 9d: ViT-B/32 tensor-parallel over 2 gloo ranks "
+              f"(text heads per rank {tpr[0]['heads'][0]}), f32 DAMSM loss "
+              f"vs the replicated CLIP: worst metric rel diff {loss:.3e} "
+              f"(bound 1e-5), worst |g - w| / (1e-4 (max(1, max |w|) + "
+              f"|w|)) {worst:.3e} (bound 1; {top}) in "
+              f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("tensor-parallel CLIP disagrees")
+    print(f"parallel: phase 9 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2510,6 +3139,7 @@ def main() -> int:
     drive_dcgan(card)
     check_figures()
     check_legacy_encoders(card)
+    drive_parallel(card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -26,6 +26,17 @@ the JAX package hands such samples to PIL, which the port does not have.
 Each :class:`Batch` carries the dataset generator's state just after its
 own draws (``rng_state``), so that a run stopped after any batch resumes
 with the draws an unstopped run would make, whatever was prefetched.
+
+Under data parallelism (PARITY D11) host ``host_index`` of ``host_count``
+takes the ``host_index``-th contiguous slab of every epoch's order (the
+JAX loader's ``_host_slice``) and batches ``batch_size`` records of it;
+its local rank ``local_index`` of ``local_count`` then takes its
+contiguous ``batch_size / local_count`` rows of each host batch.  Every
+local rank draws the plans of the whole host batch from the dataset's one
+generator, in the loader's order, and decodes only its own rows: a rank
+that drew only its own rows would shift every later crop, flip and
+caption.  A dataset without plans (the synthetic one) is read record by
+record, each a function of its index, so a rank reads only its own.
 """
 
 from __future__ import annotations
@@ -149,15 +160,27 @@ def prefetch_to_device(batch_iter: Iterable[Dict[str, Any]], device,
 
 class DataLoader:
     """Shuffling, drop-last, prefetching batch iterator (the JAX package's
-    ``DataLoader``, single host).  ``pin_memory`` puts the images of each
-    batch in pinned CPU tensors, ready for ``non_blocking`` copies."""
+    ``DataLoader``).  ``pin_memory`` puts the images of each batch in
+    pinned CPU tensors, ready for ``non_blocking`` copies.
+    ``host_index``/``host_count`` and ``local_index``/``local_count`` split
+    the data over hosts and their local ranks (the module's docstring);
+    ``batch_size`` is the per-host batch and must divide over the local
+    ranks."""
 
     def __init__(self, dataset, tokenizer: ClipTokenizer, batch_size: int,
                  words_num: int, shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 2, prefetch: int = 2, seed: int = 0,
-                 engine: str = "auto", pin_memory: bool = False):
+                 engine: str = "auto", pin_memory: bool = False,
+                 host_index: int = 0, host_count: int = 1,
+                 local_index: int = 0, local_count: int = 1):
         if engine not in ("auto", "thread", "native"):
             raise ValueError(f"unknown loader engine {engine!r}")
+        if batch_size % local_count:
+            raise ValueError(f"a host batch of {batch_size} does not split "
+                             f"over {local_count} local ranks")
+        self.host_index, self.host_count = host_index, host_count
+        self.local_index, self.local_count = local_index, local_count
+        self.rows = batch_size // local_count  # this rank's rows a batch
         self.dataset = dataset
         self.tokenizer = tokenizer
         self.batch_size = batch_size
@@ -172,8 +195,22 @@ class DataLoader:
         self.epoch = 0  # epochs started; epoch e is ordered by (seed, e)
         self._exec: Optional[native.AsyncExecutor] = None
 
+    def _host_slice(self, idx: np.ndarray) -> np.ndarray:
+        """This host's contiguous slab of an epoch's order."""
+        if self.host_count <= 1:
+            return idx
+        per = len(idx) // self.host_count
+        return idx[self.host_index * per:(self.host_index + 1) * per]
+
+    def _own(self, items: list) -> list:
+        """This local rank's rows of a host batch's ``items``."""
+        if self.local_count <= 1:
+            return items
+        start = self.local_index * self.rows
+        return items[start:start + self.rows]
+
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self._host_slice(np.arange(len(self.dataset))))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -193,6 +230,8 @@ class DataLoader:
         return self.order(self.epoch)
 
     def index_batches(self, order: np.ndarray) -> List[np.ndarray]:
+        """This host's batches of the epoch order ``order``."""
+        order = self._host_slice(order)
         n = len(order)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last \
             else n
@@ -221,14 +260,14 @@ class DataLoader:
         return None if rng is None else rng.bit_generator.state
 
     def _draw(self, idxs, engine: str):
-        """The plans of one batch, drawn in index order; for a dataset
-        without plans, its records."""
+        """This rank's plans of one host batch, after drawing the whole
+        batch's in index order; for a dataset without plans, this rank's
+        records."""
         ds = self.dataset
-        if engine == "native":
-            return [ds.plan_record(int(i)) for i in idxs]
-        if engine == "thread":
-            return [ds.thread_plan(int(i)) for i in idxs]
-        return [ds[int(i)] for i in idxs]
+        if engine == "records":
+            return [ds[int(i)] for i in self._own(list(idxs))]
+        plan = ds.plan_record if engine == "native" else ds.thread_plan
+        return self._own([plan(int(i)) for i in idxs])
 
     def _batch(self, plans, images) -> Batch:
         return Batch(images=images,
@@ -248,19 +287,22 @@ class DataLoader:
         for idxs in self.index_batches(self.next_order()):
             yield self._batch(self._draw(idxs, engine), None)
 
-    def peek(self, with_images: bool = True) -> Optional[Batch]:
+    def peek(self, with_images: bool = True,
+             whole: bool = False) -> Optional[Batch]:
         """A fixed probe batch that moves neither the epoch nor the
         dataset's generator: the first ``batch_size`` records in dataset
         order through ``deterministic_record`` (first two captions, centre
-        crop, no flip) where the dataset has it, else its records."""
+        crop, no flip) where the dataset has it, else its records; this
+        rank's rows of them, or all of them with ``whole``."""
         n = min(self.batch_size, len(self.dataset))
         if n == 0:
             return None
         ds = self.dataset
+        idxs = list(range(n)) if whole else self._own(list(range(n)))
         if not hasattr(ds, "deterministic_plan"):
-            return collate([ds[i] for i in range(n)], self.tokenizer,
+            return collate([ds[i] for i in idxs], self.tokenizer,
                            self.words_num, with_images)
-        plans = [ds.deterministic_plan(i) for i in range(n)]
+        plans = [ds.deterministic_plan(i) for i in idxs]
         images = None
         if with_images:
             images = [np.stack(x) for x in zip(*map(ds.load_plan, plans))]
@@ -284,7 +326,7 @@ class DataLoader:
             ds = self.dataset
             self._exec = native.AsyncExecutor(
                 branch_sizes=list(ds.sizes), scale_size=ds.transform.scale,
-                crop=ds.transform.imsize, max_batch=self.batch_size,
+                crop=ds.transform.imsize, max_batch=self.rows,
                 n_threads=self.num_workers, n_slots=self.prefetch + 1)
         return self._exec
 

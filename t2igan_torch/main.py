@@ -12,7 +12,10 @@ captions named in ``<DATA_DIR>/example_filenames.txt`` are rendered
 (:meth:`CondGanTrainer.gen_example`).  The seed is 100 in evaluation, and
 ``--manualSeed`` (random when not given) in training.  The default device
 is ``cuda``; without a card this raises rather than falling back to the
-CPU.
+CPU.  Under ``torchrun`` (``python -m torch.distributed.run
+--nproc_per_node N -m t2igan_torch.main ...``) it is data-parallel over
+the ranks (:class:`t2igan_torch.train.train_gan.CondGanTrainer`), every
+rank with rank 0's seed and output directory.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 
 from t2igan_torch.config import cfg_from_file, cfg_replace
 from t2igan_torch.models.clip import ClipConfig
+from t2igan_torch.parallel.mesh import init_distributed, shutdown
 from t2igan_torch.train.train_gan import DTYPES, CondGanTrainer
 
 
@@ -78,16 +82,20 @@ def main(argv: Optional[Sequence[str]] = None,
         seed = 100
     elif seed is None:
         seed = random.randint(1, 10000)
-    random.seed(seed)
-    np.random.seed(seed)
-    print(f"Seed: {seed}")
 
     timestamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     output_dir = args.output_dir or os.path.join(
         "output", f"{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}_{timestamp}")
+    # Under torchrun every rank takes rank 0's seed and output directory.
+    mesh = init_distributed(args.device)
+    seed, output_dir = mesh.gather_objects((seed, output_dir))[0]
+    random.seed(seed)
+    np.random.seed(seed)
+    print(f"Seed: {seed}")
     split = "train" if cfg.TRAIN.FLAG else "test"
     trainer = CondGanTrainer(cfg, args.device, DTYPES[args.dtype], seed,
-                             clip_cfg, output_dir=output_dir, split=split)
+                             clip_cfg, output_dir=output_dir, split=split,
+                             mesh=mesh)
     if cfg.TRAIN.FLAG:
         trainer.train(max_epochs=args.max_epochs)
     elif cfg.B_VALIDATION:
@@ -99,3 +107,4 @@ def main(argv: Optional[Sequence[str]] = None,
 
 if __name__ == "__main__":
     main()
+    shutdown()

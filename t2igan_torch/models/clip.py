@@ -64,14 +64,14 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qkv_proj = nn.Linear(dim, 3 * dim)
         self.out_proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, l, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        b, l, _ = x.shape
+        h, hd = self.num_heads, self.head_dim  # this rank's heads under TP
         qkv = self.qkv_proj(x).reshape(b, l, 3, h, hd)
         q = qkv[:, :, 0] * (hd ** -0.5)
         k, v = qkv[:, :, 1], qkv[:, :, 2]
@@ -79,7 +79,8 @@ class MultiHeadAttention(nn.Module):
         if bias is not None:
             logits = logits + bias
         weights = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, l, d)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(
+            b, l, h * hd)
         return self.out_proj(out)
 
 

@@ -614,7 +614,11 @@ def load_reference_clip_state(module: ClipWithRegionHead,
 
 def save_clip_pth(module: ClipWithRegionHead, path: str) -> None:
     """``torch.save`` of :func:`clip_reference_state_dict` (a reference
-    ``clip%d.pth``)."""
+    ``clip%d.pth``).  A module sharded over a model axis raises: the file
+    is always whole (``t2igan_torch.parallel.tp.gather_clip`` first)."""
+    if getattr(module, "tp_group", None) is not None:
+        raise ValueError("this CLIP is sharded over a model axis; write "
+                         "t2igan_torch.parallel.tp.gather_clip(module)")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(clip_reference_state_dict(module), path)
 

@@ -28,6 +28,8 @@ changes.  Training keeps the module chain.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -37,6 +39,7 @@ from torch import nn
 from t2igan_torch.ops.attention import memory_read
 from t2igan_torch.ops.image import upsample_nearest_2x
 from t2igan_torch.ops.kernels import reschain
+from t2igan_torch.parallel.mesh import sum_autograd
 
 UPBLOCK_VARIANTS = ("dilated", "naive", "subpixel")
 
@@ -57,6 +60,25 @@ def hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0)
 
 
+# The data-parallel mesh whose batch the train-mode BatchNorms normalise
+# over; see :func:`global_batch_stats`.
+_STATS_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_stats_mesh", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh):
+    """Within this block (in this thread or task) every train-mode
+    :class:`BatchNorm` takes its statistics over ``mesh``'s global batch
+    (a :class:`t2igan_torch.parallel.mesh.DataMesh`; None or a mesh
+    without a group changes nothing)."""
+    token = _STATS_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _STATS_MESH.reset(token)
+
+
 class BatchNorm(nn.Module):
     """Batch normalisation over dim 1 with eps 1e-5 and momentum 0.9, as
     the JAX package's flax ``nn.BatchNorm``.
@@ -68,6 +90,14 @@ class BatchNorm(nn.Module):
     become ``0.9 * running + 0.1 * batch``.  ``F.batch_norm(training=True)``
     would put the unbiased variance, n / (n - 1) larger, into
     ``running_var``.  The output has ``x``'s dtype.
+
+    Inside :func:`global_batch_stats` the train-mode statistics are those
+    of the global batch (PARITY D10): each rank's mean and ``E[x^2]``,
+    weighted by its share ``n / N`` of the rows, are summed over ranks in
+    f32 by an autograd all_reduce, whose backward sums the statistics'
+    gradients over ranks.  ``torch.nn.SyncBatchNorm`` would put the
+    unbiased variance into ``running_var`` (ROADMAP F3).  At a share of 1
+    (one rank) the arithmetic is the single-process one, bit for bit.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -86,7 +116,14 @@ class BatchNorm(nn.Module):
         dims = [d for d in range(x.dim()) if d != 1]
         xf = x.float()
         mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        mesh = _STATS_MESH.get()
+        if mesh is None or not mesh.distributed:
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        else:
+            # Rows are split evenly (ranks_for_batch), so n / N = 1 / W.
+            share = torch.stack([mean, (xf * xf).mean(dims)]) / mesh.world
+            mean, mean_sq = sum_autograd(share, mesh.group).unbind()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
             self.running_var.copy_(0.9 * self.running_var + 0.1 * var)

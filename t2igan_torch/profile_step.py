@@ -2,7 +2,7 @@
 
     python -m t2igan_torch.profile_step [--path sampler|geneval|train|damsm|rank] \
         [--fused-tail] [--batch N] [--dtype bf16|f32] [--iters 3] \
-        [--trace PATH]
+        [--trace PATH] [--group]
 
 ``--path sampler`` (default batch 128) runs the sampler at the widths of
 ``configs/eval_clip_bird.yml`` on the JAX bench's gen inputs (ids all
@@ -22,7 +22,10 @@ tokens an image, ids all <eos>, full mask).  Weights come from a seed.  After a
 warm-up it records ``--iters`` calls under ``torch.profiler``, reads the
 CUDA kernels from the exported Chrome trace, and prints per call: the
 device busy time, the device idle share of the window, the time by kernel
-family, and the top kernels.  Needs a CUDA card.
+family, and the top kernels.  ``--group`` runs the train path under a
+process group of one rank over NCCL (the data-parallel code path at world
+size 1) and adds the host time of its collectives per call.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import subprocess
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from t2igan_torch.config import cfg_from_dict, cfg_replace
 from t2igan_torch.configs import CLIP_BIRD_DMGAN, DAMSM_BIRD, EVAL_CLIP_BIRD
@@ -45,6 +49,7 @@ from t2igan_torch.generate import DTYPES, build_models
 from t2igan_torch.models.clip import init_clip_
 from t2igan_torch.models.factory import build_clip
 from t2igan_torch.models.inception import InceptionV3, init_inception_
+from t2igan_torch.parallel.mesh import init_distributed
 from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
 from t2igan_torch.train.steps import make_damsm_step, make_sampler
 from t2igan_torch.train.train_gan import CondGanTrainer
@@ -129,11 +134,11 @@ def rank_call(batch: int, dtype: torch.dtype, n_mis: int = 99):
     return lambda: rank(images, ids, mask, mis_ids, mis_mask)
 
 
-def train_call(batch: int, dtype: torch.dtype):
+def train_call(batch: int, dtype: torch.dtype, mesh=None):
     cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
                       TRAIN={"BATCH_SIZE": batch, "DISCRIMINATOR_LR": 2e-5,
                              "GENERATOR_LR": 2e-5})
-    trainer = CondGanTrainer(cfg, "cuda", dtype, seed=0)
+    trainer = CondGanTrainer(cfg, "cuda", dtype, seed=0, mesh=mesh)
     batches = [{k: ([torch.as_tensor(x, device="cuda") for x in v]
                     if k == "images" else torch.as_tensor(v, device="cuda"))
                 for k, v in b.items()}
@@ -170,6 +175,8 @@ def main() -> None:
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--trace", default="", help="keep the Chrome trace here")
+    p.add_argument("--group", action="store_true",
+                   help="the train path under a one-rank NCCL group")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
@@ -180,8 +187,17 @@ def main() -> None:
         raise SystemExit("--fused-tail is eval only: the train steps run "
                          "the module chain")
     b = args.batch or {"train": 16, "damsm": 48}.get(args.path, 128)
+    if args.group and args.path != "train":
+        raise SystemExit("--group is for the train path")
     if args.path == "train":
-        call = train_call(b, DTYPES[args.dtype])
+        mesh = None
+        if args.group:
+            store = tempfile.NamedTemporaryFile(delete=False).name
+            os.unlink(store)
+            dist.init_process_group("nccl", store=dist.FileStore(store, 1),
+                                    rank=0, world_size=1)
+            mesh = init_distributed("cuda", "nccl")
+        call = train_call(b, DTYPES[args.dtype], mesh)
     elif args.path == "damsm":
         call = damsm_call(b, DTYPES[args.dtype])
     elif args.path == "rank":
@@ -220,6 +236,7 @@ def main() -> None:
         by_name[e["name"]] += e["dur"] / 1e3 / args.iters
         launches[e["name"]] += 1
     tail = " fused tail" if args.fused_tail else ""
+    tail += " under a one-rank NCCL group" if args.group else ""
     print(f"[{card}] {args.path}{tail} {args.dtype} batch {b}: device busy "
           f"{busy:.3f} ms/call, window {window:.3f} ms/call, idle share "
           f"{1 - busy / window:.1%}, {len(kernels) // args.iters} kernels/call")
@@ -229,6 +246,22 @@ def main() -> None:
     for name, ms in by_name.most_common(12):
         print(f"    {ms:8.3f} ms {ms / busy:6.1%} x{launches[name] // args.iters}"
               f"  {name[:110]}")
+    if args.group:
+        # The collectives' host ops (c10d, the autograd all_reduce) and
+        # their NCCL kernels, per call.
+        ops = [e for e in events if e.get("cat") == "cpu_op" and any(
+            t in e["name"].lower() for t in ("c10d", "allreduce",
+                                             "all_reduce", "broadcast"))]
+        host = collections.Counter()
+        for e in ops:
+            host[e["name"]] += e["dur"] / 1e3 / args.iters
+        nccl = [e for e in kernels if "nccl" in e["name"].lower()]
+        print(f"  collectives: {len(nccl) // args.iters} NCCL kernels/call, "
+              f"{sum(e['dur'] for e in nccl) / 1e3 / args.iters:.3f} ms "
+              f"device/call; host ops (ms/call, nested ops counted in each):")
+        for name, ms in host.most_common(8):
+            print(f"    {ms:8.3f} ms  {name[:100]}")
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -30,6 +30,13 @@ in the JAX package.  Every step is a row of ``<output_dir>/metrics.jsonl``
 (:class:`t2igan_torch.utils.logging.MetricsLogger`), and every snapshot
 epoch writes the attention figure ``<output_dir>/Image/attn_epoch%d.png``,
 as the JAX trainer does.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m t2igan_torch.pretrain_damsm ...``) the trainer is data-parallel
+(:mod:`t2igan_torch.parallel.mesh`): ``TRAIN.BATCH_SIZE`` per host split
+over its ranks, the step's losses over the global batch, gradients
+averaged before the update, validation split the same way; rank 0 alone
+writes the files.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from t2igan_torch.models.convert import save_clip_pth
 from t2igan_torch.losses import strip_special_tokens
 from t2igan_torch.models.factory import load_clip
 from t2igan_torch.ops.attention import word_region_attention
+from t2igan_torch.parallel.mesh import DataMesh, init_distributed
 from t2igan_torch.train.checkpoint import (CheckpointManager, damsm_payload,
                                            restore_damsm_payload)
 from t2igan_torch.train.state import damsm_optimizer, init_damsm_state
@@ -83,14 +91,22 @@ def make_dataset(cfg: Config, split: str
 
 
 def make_loader(cfg: Config, dataset, tokenizer: ClipTokenizer,
-                words_num: int, shuffle: bool, device: torch.device
-                ) -> DataLoader:
+                words_num: int, shuffle: bool, device: torch.device,
+                mesh: Optional[DataMesh] = None) -> DataLoader:
     """The JAX trainers' loader: ``TRAIN.BATCH_SIZE``, ``max(1, WORKERS)``
-    workers, ``DATA_ENGINE``; images in pinned memory for a card."""
+    workers, ``DATA_ENGINE``; images in pinned memory for a card; split
+    over ``mesh``'s hosts and local ranks (a rank the mesh leaves out gets
+    its host's whole batches, and never reads them)."""
+    split = {}
+    if mesh is not None:
+        split = dict(host_index=mesh.host_index, host_count=mesh.host_count)
+        if mesh.takes_part:
+            split.update(local_index=mesh.local_index,
+                         local_count=mesh.local_count)
     return DataLoader(dataset, tokenizer, cfg.TRAIN.BATCH_SIZE, words_num,
                       shuffle=shuffle, num_workers=max(1, cfg.WORKERS),
                       engine=cfg.DATA_ENGINE,
-                      pin_memory=device.type == "cuda")
+                      pin_memory=device.type == "cuda", **split)
 
 
 def data_rng_state(dataset):
@@ -107,17 +123,24 @@ class DamsmTrainer:
     """CLIP, its optimizer and the data of DAMSM fine-tuning.
 
     ``dtype`` is the precision of the towers (parameters and optimizer
-    state stay f32); ``clip_cfg`` the CLIP widths (ViT-B/32 by default)."""
+    state stay f32); ``clip_cfg`` the CLIP widths (ViT-B/32 by default);
+    ``mesh`` the data-parallel layout (default :func:`init_distributed`
+    on ``device``); a rank it leaves out trains on nothing and writes
+    nothing."""
 
     def __init__(self, cfg: Config, output_dir: str, device: str = "cuda",
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  clip_cfg: ClipConfig = ClipConfig(),
-                 words_num: int = DAMSM_WORDS_NUM):
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
+                 words_num: int = DAMSM_WORDS_NUM,
+                 mesh: Optional[DataMesh] = None):
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: t2igan_torch.pretrain_damsm "
                                "runs on the card by default; pass --device "
                                "cpu to run on the CPU")
+        self.mesh = mesh = (mesh or init_distributed(device)).for_batch(
+            cfg.TRAIN.BATCH_SIZE)
+        dev = mesh.device
         self.cfg = cfg
         self.output_dir = output_dir
         self.device = dev
@@ -125,13 +148,14 @@ class DamsmTrainer:
         self.tokenizer = tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
         self.train_batches, self.val_batches = (
             make_loader(cfg, make_dataset(cfg, split), tokenizer, words_num,
-                        True, dev) for split in ("train", "val"))
+                        True, dev, mesh) for split in ("train", "val"))
         rng = torch.Generator().manual_seed(seed)
         clip = load_clip(cfg, clip_cfg, rng).to(dev)
+        mesh.replicate_([clip])
         self.tx = damsm_optimizer(cfg, steps_per_epoch=len(self.train_batches))
         self.state = init_damsm_state(cfg, clip, self.tx)
-        self.step_fn = make_damsm_step(cfg, clip, self.state.opt, dtype)
-        self.eval_loss_fn = make_damsm_loss(cfg, clip, dtype)
+        self.step_fn = make_damsm_step(cfg, clip, self.state.opt, dtype, mesh)
+        self.eval_loss_fn = make_damsm_loss(cfg, clip, dtype, mesh)
         self.epoch = 0  # epochs done: train() goes on from here
         self.ckpt = CheckpointManager(os.path.join(output_dir, "Model"))
         payload, step = self.ckpt.restore()
@@ -139,10 +163,11 @@ class DamsmTrainer:
             self.epoch = restore_damsm_payload(self.state, payload)
             self.train_batches.epoch = payload["train_order"]
             self.val_batches.epoch = payload["val_order"]
-            set_data_rng_state(self.train_batches.dataset,
-                               payload.get("train_rng"))
-            set_data_rng_state(self.val_batches.dataset,
-                               payload.get("val_rng"))
+            h = mesh.host_index
+            for loader, key in ((self.train_batches, "train_rng"),
+                                (self.val_batches, "val_rng")):
+                set_data_rng_state(loader.dataset, payload.get(
+                    key + "_by_host", [payload.get(key)])[h])
             print(f"Resumed DAMSM state from step {step} ({self.epoch} "
                   f"epochs done)")
 
@@ -161,32 +186,52 @@ class DamsmTrainer:
         cfg = self.cfg
         epochs = max_epochs if max_epochs is not None else cfg.TRAIN.MAX_EPOCH
         metrics: Dict[str, float] = {}
-        logger = MetricsLogger(self.output_dir)
-        timer = StepTimer(cfg.TRAIN.BATCH_SIZE)
+        mesh = self.mesh
+        if not mesh.takes_part:
+            return metrics
+        logger = MetricsLogger(self.output_dir) if mesh.writes else None
+        timer = StepTimer(cfg.TRAIN.BATCH_SIZE * mesh.host_count)
         try:
             for epoch in range(self.epoch, epochs):
                 start = time.perf_counter()
                 metrics = self.train_epoch(epoch, logger, timer) or metrics
-                logger.flush()
+                if logger is not None:
+                    logger.flush()
                 val = self.evaluate()
-                print(f"| end epoch {epoch:3d} | valid s_loss "
-                      f"{val['s_loss']:5.2f} w_loss {val['w_loss']:5.2f} |"
-                      f" {time.perf_counter() - start:.1f}s", flush=True)
+                if mesh.rank == 0:
+                    print(f"| end epoch {epoch:3d} | valid s_loss "
+                          f"{val['s_loss']:5.2f} w_loss "
+                          f"{val['w_loss']:5.2f} |"
+                          f" {time.perf_counter() - start:.1f}s", flush=True)
                 self.epoch = epoch + 1
                 if epoch % cfg.TRAIN.SNAPSHOT_INTERVAL == 0 or \
                         epoch == epochs - 1:
-                    save_clip_pth(self.state.clip,
-                                  self.checkpoint_path(epoch))
-                    self.ckpt.save(self.state.step, dict(
-                        damsm_payload(self.state, self.epoch),
-                        train_order=self.train_batches.epoch,
-                        val_order=self.val_batches.epoch,
-                        train_rng=data_rng_state(self.train_batches.dataset),
-                        val_rng=data_rng_state(self.val_batches.dataset)))
-                    self.save_attention_figure(epoch)
+                    self.snapshot(epoch)
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         return metrics
+
+    def snapshot(self, epoch: int) -> None:
+        """``clip<epoch>.pth``, the full train state (under data
+        parallelism with each host's dataset generator states) and the
+        attention figure, written by rank 0; a barrier follows."""
+        mesh = self.mesh
+        rngs = {key: mesh.by_host(data_rng_state(loader.dataset))
+                for loader, key in ((self.train_batches, "train_rng"),
+                                    (self.val_batches, "val_rng"))}
+        if mesh.writes:
+            save_clip_pth(self.state.clip, self.checkpoint_path(epoch))
+            payload = dict(damsm_payload(self.state, self.epoch),
+                           train_order=self.train_batches.epoch,
+                           val_order=self.val_batches.epoch,
+                           train_rng=rngs["train_rng"][0],
+                           val_rng=rngs["val_rng"][0])
+            if mesh.distributed:
+                payload.update({k + "_by_host": v for k, v in rngs.items()})
+            self.ckpt.save(self.state.step, payload)
+            self.save_attention_figure(epoch)
+        mesh.barrier()
 
     def train_epoch(self, epoch: int, logger: Optional[MetricsLogger] = None,
                     timer: Optional[StepTimer] = None) -> Dict[str, float]:
@@ -205,6 +250,8 @@ class DamsmTrainer:
                 logger.log(self.state.step, dict(
                     out, images_per_sec=timer.images_per_sec))
             metrics = {k: float(v) for k, v in out.items()}
+            if self.mesh.rank != 0:
+                continue
             print(f"| epoch {epoch:3d} | {i + 1:4d}/"
                   f"{len(self.train_batches):4d} batches | step "
                   f"{self.state.step} | "
@@ -218,7 +265,7 @@ class DamsmTrainer:
         the image regions, GAMMA1) of the first 4 records of the
         validation loader's probe batch, over their images
         (:func:`attention_grid`), as the JAX trainer draws it; f32."""
-        batch = self.val_batches.peek()
+        batch = self.val_batches.peek(whole=True)
         if batch is None:
             return
         clip = self.state.clip

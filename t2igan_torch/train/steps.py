@@ -13,9 +13,10 @@ from t2igan_torch.losses import (discriminator_loss, generator_adv_loss,
                                  strip_special_tokens, words_loss,
                                  wrong_pair)
 from t2igan_torch.models.clip import ClipWithRegionHead
-from t2igan_torch.models.generator import GDCGan, GNet
+from t2igan_torch.models.generator import GDCGan, GNet, global_batch_stats
 from t2igan_torch.ops.attention import l2_normalize
 from t2igan_torch.ops.image import resize_nearest
+from t2igan_torch.parallel.mesh import DataMesh
 from t2igan_torch.train.state import (DamsmOptimizer, GanTrainState,
                                       ema_update)
 
@@ -24,7 +25,8 @@ EMA_DECAY = 0.999  # the G EMA's mixing rate
 
 
 def make_damsm_loss(cfg: Config, clip: ClipWithRegionHead,
-                    dtype: torch.dtype = torch.float32
+                    dtype: torch.dtype = torch.float32,
+                    mesh: Optional[DataMesh] = None
                     ) -> Callable[..., Tuple[torch.Tensor, Dict]]:
     """The DAMSM loss, as ``t2igan.train.steps.make_damsm_loss``:
     ``loss_fn(batch) -> (total, metrics)`` on ``clip``'s current weights.
@@ -42,7 +44,16 @@ def make_damsm_loss(cfg: Config, clip: ClipWithRegionHead,
     ``loss``, ``w_loss``, ``s_loss`` and ``contrastive``.
 
     ``dtype=torch.bfloat16`` runs the towers under ``torch.autocast``; the
-    losses are f32."""
+    losses are f32.
+
+    Under a ``mesh`` with a group, ``batch`` holds this rank's rows; the
+    towers run on them, and the word, sentence and NT-Xent terms are
+    computed whole on every rank over the global batch (regions, image
+    codes, words and sentences gathered with their autograd, the masks
+    and class ids without), so ``total`` and the metrics are the global
+    ones and the per-rank objectives sum to ``W`` times the global loss
+    (:mod:`t2igan_torch.parallel.mesh`)."""
+    mesh = mesh or DataMesh.single(clip.logit_scale.device)
     g1 = cfg.TRAIN.SMOOTH.GAMMA1
     g2 = cfg.TRAIN.SMOOTH.GAMMA2
     g3 = cfg.TRAIN.SMOOTH.GAMMA3
@@ -68,6 +79,10 @@ def make_damsm_loss(cfg: Config, clip: ClipWithRegionHead,
         sent1, sent2 = l2_normalize(sent12.float()).chunk(2)
         w1, m1 = strip_special_tokens(words1, mask)
         w2, m2 = strip_special_tokens(words2, mask2)
+        live, rows = mesh.gather_rows_live, mesh.gather_rows
+        regions, img_code = live(regions), live(img_code)
+        w1, w2, sent1, sent2 = live(w1), live(w2), live(sent1), live(sent2)
+        m1, m2, cls = rows(m1), rows(m2), rows(cls)
 
         wl0, wl1 = words_loss(regions, w1, cls, m1, g1, g2, g3)
         wl0b, wl1b = words_loss(regions, w2, cls, m2, g1, g2, g3)
@@ -85,15 +100,22 @@ def make_damsm_loss(cfg: Config, clip: ClipWithRegionHead,
 
 def make_damsm_step(cfg: Config, clip: ClipWithRegionHead,
                     opt: DamsmOptimizer,
-                    dtype: torch.dtype = torch.float32
+                    dtype: torch.dtype = torch.float32,
+                    mesh: Optional[DataMesh] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """The DAMSM step, as ``t2igan.train.steps.make_damsm_step``: the
     returned ``step(batch)`` takes the gradients of
     :func:`make_damsm_loss`'s total with respect to every parameter of
     ``clip`` and applies ``opt`` (global-norm clip, two-group Adam), both
     in place.  It returns the loss metrics and ``grad_norm`` (the global
-    norm before the clip) as detached 0-dim tensors."""
-    loss_fn = make_damsm_loss(cfg, clip, dtype)
+    norm before the clip) as detached 0-dim tensors.
+
+    Under a ``mesh`` the loss is :func:`make_damsm_loss`'s over the global
+    batch and the gradients are averaged over ranks before the update, so
+    the global norm, the clip and Adam see the global gradient and every
+    rank's CLIP and Adam state stay equal."""
+    mesh = mesh or DataMesh.single(clip.logit_scale.device)
+    loss_fn = make_damsm_loss(cfg, clip, dtype, mesh)
     params = list(clip.parameters())
 
     def step(batch) -> Dict[str, torch.Tensor]:
@@ -101,6 +123,7 @@ def make_damsm_step(cfg: Config, clip: ClipWithRegionHead,
         grads = torch.autograd.grad(total, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = g
+        mesh.all_reduce_grads_(params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = opt.step()
         return metrics
@@ -109,7 +132,8 @@ def make_damsm_step(cfg: Config, clip: ClipWithRegionHead,
 
 
 def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
-                  dtype: torch.dtype = torch.float32) -> Callable[..., Dict]:
+                  dtype: torch.dtype = torch.float32,
+                  mesh: Optional[DataMesh] = None) -> Callable[..., Dict]:
     """The adversarial step, as ``t2igan.train.steps.make_gan_step``.
 
     The returned ``step(state, batch, z=None, eps1=None, eps2=None,
@@ -140,6 +164,18 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
     ``dtype=torch.bfloat16`` runs the forwards under ``torch.autocast``
     (parameters, optimizer state and EMA stay f32); losses are f32.
 
+    Under a ``mesh`` with a group (:mod:`t2igan_torch.parallel.mesh`) the
+    step is the JAX step on the global batch, of which ``batch`` holds
+    this rank's rows: ``z``, ``eps1`` and ``eps2`` are drawn (or given)
+    for the global batch and each rank takes its rows; G's BatchNorms
+    normalise over the global batch; D's wrong pair rolls the gathered
+    sentences; each D's gradients are averaged over ranks before its
+    optimizer; the adversarial and KL terms are local means, the DAMSM
+    word and sentence terms and NT-Xent are computed whole over gathered
+    rows, and G's gradients are averaged over ranks.  The metrics are
+    the global values, and every rank's parameters, spectral vectors,
+    running statistics, optimizer states and EMA stay equal.
+
     ``GAN.B_DCGAN`` raises ``NotImplementedError``: the JAX package's step
     cannot train ``GDCGan`` either (it pairs the 64 px real image with the
     fakes of the one finest-size discriminator and calls that
@@ -156,6 +192,8 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
     g3 = cfg.TRAIN.SMOOTH.GAMMA3
     lam = cfg.TRAIN.SMOOTH.LAMBDA
     clip_size = clip.cfg.image_size
+    mesh = mesh or DataMesh.single(clip.logit_scale.device)
+    rows, live = mesh.gather_rows, mesh.gather_rows_live
 
     def step(state: GanTrainState, batch, z: Optional[torch.Tensor] = None,
              eps1: Optional[torch.Tensor] = None,
@@ -183,9 +221,9 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
                 if generator is None:
                     raise ValueError("pass z, eps1 and eps2, or a "
                                      "torch.Generator to draw them from")
-                t = torch.randn((b, dim), generator=generator,
+                t = torch.randn((b * mesh.world, dim), generator=generator,
                                 device=generator.device)
-            noise.append(put(t).float())
+            noise.append(mesh.local_rows(put(t).float()))
         z, eps1, eps2 = noise
 
         with torch.no_grad(), amp():
@@ -193,11 +231,14 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
                                                    torch.cat([mask, mask2]))
         words1, words2 = words.chunk(2)
         sent1, sent2 = sent.chunk(2)
-        with amp():
+        with amp(), global_batch_stats(mesh):
             f1, _, mu1, lv1 = gen(z, sent1, words1, mask == 0, eps1,
                                   return_attn=False, train=True)
             f2, _, mu2, lv2 = gen(z, sent2, words2, mask2 == 0, eps2,
                                   return_attn=False, train=True)
+        # The wrong pair of row i is row i + 1 of the global batch.
+        wrong1 = mesh.local_rows(wrong_pair(rows(sent1)))
+        wrong2 = mesh.local_rows(wrong_pair(rows(sent2)))
 
         metrics: Dict[str, torch.Tensor] = {}
         for i, (d, opt) in enumerate(zip(state.ds, state.d_opts)):
@@ -207,11 +248,11 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
                 h_r, h_f1, h_f2 = d.features(x, update_spectral=True).chunk(3)
                 uncond = d.uncond_head is not None
                 logits = [d.cond(h_r, sent1), d.cond(h_f1, sent1),
-                          d.cond(h_r, wrong_pair(sent1)),
+                          d.cond(h_r, wrong1),
                           d.uncond(h_r) if uncond else None,
                           d.uncond(h_f1) if uncond else None,
                           d.cond(h_r, sent2), d.cond(h_f2, sent2),
-                          d.cond(h_r, wrong_pair(sent2)),
+                          d.cond(h_r, wrong2),
                           d.uncond(h_r) if uncond else None,
                           d.uncond(h_f2) if uncond else None]
             loss1, aux = discriminator_loss(*logits[:5])
@@ -220,6 +261,7 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
             params = [p for p in d.parameters() if p.requires_grad]
             for p, g in zip(params, torch.autograd.grad(d_loss, params)):
                 p.grad = g
+            mesh.all_reduce_grads_(params)
             opt.step()
             metrics[f"d_loss{i}"] = d_loss.detach()
             metrics[f"real_acc{i}"] = aux["real_acc"].detach()
@@ -238,6 +280,11 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
             subr12, img12 = clip.encode_image_verbose(resized)
         regions1, regions2 = subr12[:, 1:].float().chunk(2)
         cnn1, cnn2 = img12.float().chunk(2)
+        regions1, regions2 = live(regions1), live(regions2)
+        cnn1, cnn2 = live(cnn1), live(cnn2)
+        words1, words2 = rows(words1), rows(words2)
+        sent1, sent2 = rows(sent1), rows(sent2)
+        mask, mask2, cls = rows(mask), rows(mask2), rows(cls)
 
         def damsm_terms(regions, img_code, words, mask, sent):
             wl0, wl1 = words_loss(regions, words, cls, mask > 0, g1, g2, g3)
@@ -254,6 +301,7 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
         params = [p for p in gen.parameters() if p.requires_grad]
         for p, g in zip(params, torch.autograd.grad(total, params)):
             p.grad = g
+        mesh.all_reduce_grads_(params)
         state.g_opt.step()
         ema_update(state.gen_ema, gen, EMA_DECAY)
         state.step += 1
@@ -263,7 +311,8 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
                           ("s_loss", s_a + s_b), ("kl_loss", kl),
                           ("contrastive", contrast)):
             metrics[name] = val.detach()
-        return metrics
+        return dict(zip(metrics, mesh.mean_over_ranks(
+            list(metrics.values()))))
 
     return step
 

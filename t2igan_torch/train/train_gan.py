@@ -36,12 +36,22 @@ tensor could leave it sampling with stale operands.
 
 The default device is ``cuda``; without a card this raises rather than
 falling back to the CPU.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m t2igan_torch.train_gan ...``, or ``-m t2igan_torch.main``) the trainer
+is data-parallel (:mod:`t2igan_torch.parallel.mesh`): one rank a card
+(``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``), ``TRAIN.BATCH_SIZE``
+per host split over the host's ranks, and the step of the JAX trainer on
+the global batch of ``BATCH_SIZE`` times the hosts.  Every rank resumes
+from the same files; rank 0 alone writes them (a barrier follows each
+write), except the sweep's PNGs, which each rank writes for its own rows.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -67,6 +77,8 @@ from t2igan_torch.models.factory import (build_discriminators,
                                          build_generator, load_clip)
 from t2igan_torch.models.generator import init_generator_
 from t2igan_torch.ops.image import resize_nearest, uint8_from_tanh
+from t2igan_torch.ops.kernels import LAUNCHES
+from t2igan_torch.parallel.mesh import DataMesh, init_distributed
 from t2igan_torch.train.checkpoint import (CheckpointManager,
                                            GracefulShutdown, gan_payload,
                                            parse_epoch_from_path,
@@ -96,17 +108,24 @@ class CondGanTrainer:
     sampler runs on ``dtype`` copies of the EMA G and CLIP); ``clip_cfg``
     the CLIP widths (ViT-B/32 by default); ``output_dir`` where
     snapshots, samples and the sweep's images go (``None``: nowhere, and
-    no resume from it)."""
+    no resume from it).  ``mesh`` is the data-parallel layout (default
+    :func:`init_distributed` on ``device``: a single process without a
+    ``torchrun`` environment); a rank it leaves out
+    (:meth:`DataMesh.for_batch`) takes no step and writes nothing."""
 
     def __init__(self, cfg: Config, device: str = "cuda",
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  clip_cfg: ClipConfig = ClipConfig(),
-                 output_dir: Optional[str] = None, split: str = "train"):
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
+                 output_dir: Optional[str] = None, split: str = "train",
+                 mesh: Optional[DataMesh] = None):
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: t2igan_torch.train_gan runs "
                                "on the card by default; pass --device cpu "
                                "to run on the CPU")
+        self.mesh = mesh = (mesh or init_distributed(device)).for_batch(
+            cfg.TRAIN.BATCH_SIZE)
+        dev = mesh.device
         self.cfg = cfg
         self.dtype = dtype
         self.output_dir = output_dir
@@ -114,7 +133,8 @@ class CondGanTrainer:
         self.tokenizer = ClipTokenizer.load(cfg.DATA_DIR or None)
         self.dataset = make_dataset(cfg, split)
         self.loader = make_loader(cfg, self.dataset, self.tokenizer,
-                                  cfg.TEXT.WORDS_NUM, cfg.TRAIN.FLAG, dev)
+                                  cfg.TEXT.WORDS_NUM, cfg.TRAIN.FLAG, dev,
+                                  mesh)
         rng = torch.Generator().manual_seed(seed)
         self.clip = load_clip(cfg, clip_cfg, rng).requires_grad_(False).to(
             dev)
@@ -123,11 +143,12 @@ class CondGanTrainer:
               for d in build_discriminators(cfg)]
         gen = gen.to(dev, memory_format=torch.channels_last)
         ds = [d.to(dev, memory_format=torch.channels_last) for d in ds]
+        mesh.replicate_([self.clip, gen, *ds])
         self.state = init_gan_state(cfg, gen, ds)
         # GDCGan does not train (make_gan_step raises, as the JAX step
         # fails); under GAN.B_DCGAN the trainer only evaluates.
         self.step_fn = None if cfg.GAN.B_DCGAN and not cfg.TRAIN.FLAG \
-            else make_gan_step(cfg, self.clip, dtype)
+            else make_gan_step(cfg, self.clip, dtype, mesh)
         self.noise = torch.Generator(device=dev).manual_seed(seed + 1)
         self.epoch = 0  # epochs done: train() goes on from here
         # (permutation, batches done) of an epoch stopped part-way.
@@ -166,7 +187,9 @@ class CondGanTrainer:
                 self.epoch, self._epoch_left = saved["epoch"], \
                     saved["epoch_left"]
                 self.loader.epoch = saved["loader_epoch"]
-                self._data_rng = saved["data_rng"]
+                self._data_rng = payload.get(
+                    "data_rng_by_host", [saved["data_rng"]])[
+                        self.mesh.host_index]
                 set_data_rng_state(self.dataset, self._data_rng)
                 print(f"Resumed GAN state from step {step} ({self.epoch} "
                       f"epochs done) in {resume_dir}")
@@ -204,6 +227,8 @@ class CondGanTrainer:
         line each, and write nothing; returns the last step's metrics."""
         self._check_trainable()
         metrics: Dict[str, float] = {}
+        if not self.mesh.takes_part:
+            return metrics
         batches = self.batches()
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -211,9 +236,11 @@ class CondGanTrainer:
             out = self.step_fn(self.state, batch, generator=self.noise)
             self._data_rng = batch["rng_state"]
             metrics = {k: float(v) for k, v in out.items()}
-            print(f"[{self.state.step}] Loss_D: {self._d_loss(metrics):.4f} "
-                  f"Loss_G: {metrics['g_loss']:.4f} "
-                  f"Time: {time.perf_counter() - t0:.2f}s", flush=True)
+            if self.mesh.rank == 0:
+                print(f"[{self.state.step}] Loss_D: "
+                      f"{self._d_loss(metrics):.4f} "
+                      f"Loss_G: {metrics['g_loss']:.4f} "
+                      f"Time: {time.perf_counter() - t0:.2f}s", flush=True)
         return metrics
 
     def _check_trainable(self) -> None:
@@ -240,8 +267,11 @@ class CondGanTrainer:
         epochs = max_epochs if max_epochs is not None else \
             self.cfg.TRAIN.MAX_EPOCH
         metrics: Dict[str, float] = {}
-        logger = MetricsLogger(self._out(), print_every=100)
-        timer = StepTimer(self.cfg.TRAIN.BATCH_SIZE)
+        if not self.mesh.takes_part:
+            return metrics
+        logger = MetricsLogger(self._out(), print_every=100) \
+            if self.mesh.writes else None
+        timer = StepTimer(self.cfg.TRAIN.BATCH_SIZE * self.mesh.host_count)
         stop = GracefulShutdown()
         try:
             for epoch in range(self.epoch, epochs):
@@ -255,21 +285,28 @@ class CondGanTrainer:
                     out = self.step_fn(self.state, batch,
                                        generator=self.noise)
                     timer.tick()
-                    logger.log(self.state.step, dict(
-                        out, images_per_sec=timer.images_per_sec))
+                    if logger is not None:
+                        logger.log(self.state.step, dict(
+                            out, images_per_sec=timer.images_per_sec))
                     self._data_rng = batch["rng_state"]
-                    if stop.requested:
+                    # Every rank stops at the same step: one that stopped
+                    # alone would leave the others in a collective.
+                    if self.mesh.any_rank(stop.requested):
+                        stop.requested = True
                         self._epoch_left = (perm, i + 1)
                         break
-                logger.flush()
+                if logger is not None:
+                    logger.flush()
                 metrics = {k: float(v) for k, v in out.items()}
-                if metrics:
+                if metrics and self.mesh.rank == 0:
                     print(f"[{epoch}/{epochs}] Loss_D: "
                           f"{self._d_loss(metrics):.2f} Loss_G: "
                           f"{metrics['g_loss']:.2f} Time: "
                           f"{time.perf_counter() - start:.2f}s", flush=True)
                 if stop.requested:
-                    print("Shutdown requested: checkpointing and exiting.")
+                    if self.mesh.rank == 0:
+                        print("Shutdown requested: checkpointing and "
+                              "exiting.")
                     self.save_state()
                     break
                 self.epoch = epoch + 1
@@ -278,27 +315,39 @@ class CondGanTrainer:
                     self.snapshot(epoch)
         finally:
             stop.restore()
-            logger.close()
+            if logger is not None:
+                logger.close()
         return metrics
 
-    def save_state(self) -> str:
-        """Write the full train state under ``Model/``; returns its
-        path."""
-        return CheckpointManager(self._out("Model")).save(
-            self.state.step, gan_payload(self.state, self.epoch, self.noise,
-                                         self.loader.epoch, self._data_rng,
-                                         self._epoch_left))
+    def save_state(self) -> Optional[str]:
+        """Write the full train state under ``Model/`` (rank 0; under data
+        parallelism with each host's dataset generator state); returns its
+        path (None on the other ranks)."""
+        by_host = self.mesh.by_host(self._data_rng)
+        path = None
+        if self.mesh.writes:
+            payload = gan_payload(self.state, self.epoch, self.noise,
+                                  self.loader.epoch, by_host[0],
+                                  self._epoch_left)
+            if self.mesh.distributed:
+                payload["data_rng_by_host"] = by_host
+            path = CheckpointManager(self._out("Model")).save(
+                self.state.step, payload)
+        self.mesh.barrier()
+        return path
 
     def snapshot(self, epoch: int) -> None:
         """The full state, ``netG_epoch_<epoch>.pth``, ``netD%d.pth`` and
-        the sample sheet ``Image/G_<epoch>.png``."""
+        the sample sheet ``Image/G_<epoch>.png`` (rank 0)."""
         self.save_state()
-        save_generator_pth(self.state.gen_ema,
-                           self._out("Model", f"netG_epoch_{epoch}.pth"),
-                           stats_from=self.state.gen)
-        for i, d in enumerate(self.state.ds):
-            save_discriminator_pth(d, self._out("Model", f"netD{i}.pth"))
-        self._save_sample_grid(epoch)
+        if self.mesh.writes:
+            save_generator_pth(self.state.gen_ema,
+                               self._out("Model", f"netG_epoch_{epoch}.pth"),
+                               stats_from=self.state.gen)
+            for i, d in enumerate(self.state.ds):
+                save_discriminator_pth(d, self._out("Model", f"netD{i}.pth"))
+            self._save_sample_grid(epoch)
+        self.mesh.barrier()
 
     def _save_sample_grid(self, tag, z: Optional[torch.Tensor] = None
                           ) -> None:
@@ -312,7 +361,7 @@ class CondGanTrainer:
         ``Image/G_<tag>_attn.png`` (:func:`attention_grid`).  The sampler
         returns the maps, so its memory read runs as einsums, not K1, as
         the JAX trainer's does."""
-        batch = self.loader.peek(with_images=False)
+        batch = self.loader.peek(with_images=False, whole=True)
         if batch is None:
             return
         n = len(batch.keys)
@@ -381,8 +430,18 @@ class CondGanTrainer:
         (nearest-exact) and ranked against their true and ``n_mis`` other
         captions.  At ``r_target`` ranked images it stops; it prints ``R
         mean:... std:...`` and returns (mean, std) of
-        :func:`bootstrap_r_precision`."""
+        :func:`bootstrap_r_precision`.
+
+        Under data parallelism each rank samples, writes and ranks its
+        rows of every batch; the noise and the mis-captions are drawn for
+        the global batch on every rank (each rank takes its rows), and the
+        hits are gathered in global order, so R is the one-rank sweep's.
+        A rank left out returns (nan, nan).  The hits stay on the trainer
+        as ``sweep_hits``."""
         cfg = self.cfg
+        mesh = self.mesh
+        if not mesh.takes_part:
+            return float("nan"), float("nan")
         clip, gen = self.eval_models(use_ema)
         sampler = make_sampler(cfg, clip, gen)
         rank = make_rank_fn(clip)
@@ -402,7 +461,7 @@ class CondGanTrainer:
             for round_i in range(num_rounds):
                 for batch in self.loader.caption_batches():
                     b = len(batch.keys)
-                    z, eps = noise(b)
+                    z, eps = map(mesh.local_rows, noise(b * mesh.world))
                     finest = sampler(batch.input_ids, batch.attention_mask,
                                      z, eps)[-1]
                     if save_images:
@@ -410,21 +469,28 @@ class CondGanTrainer:
                         for j, key in enumerate(batch.keys):
                             io_pool.submit(write_png, os.path.join(
                                 save_dir, f"{key}_{round_i}.png"), u8[j])
-                    mis_ids, mis_mask = bank.sample(batch.class_ids, n_mis)
+                    cls = mesh.gather_rows(torch.as_tensor(
+                        batch.class_ids, device=self.device)).cpu().numpy()
+                    mis_ids, mis_mask = (x[mesh.row_range(b)]
+                                         for x in bank.sample(cls, n_mis))
                     # A whole batch, so the resized images start aligned
                     # for the bf16 kernels (ROADMAP F11).
                     resized = resize_nearest(
                         finest, clip.cfg.image_size).contiguous()
                     flags, _ = rank(resized, batch.input_ids,
                                     batch.attention_mask, mis_ids, mis_mask)
-                    hits.extend(flags.cpu().tolist())
+                    hits.extend(mesh.gather_rows(flags).cpu().tolist())
                     if len(hits) >= r_target:
-                        mean, std = bootstrap_r_precision(np.asarray(hits))
-                        print(f"R mean:{mean:.4f} std:{std:.4f}")
-                        return mean, std
+                        break
+                if len(hits) >= r_target:
+                    break
+        mesh.barrier()  # every rank's PNGs are written
+        self.sweep_hits = hits
         mean, std = (bootstrap_r_precision(np.asarray(hits)) if hits
                      else (float("nan"), float("nan")))
-        print(f"R mean:{mean:.4f} std:{std:.4f} (n={len(hits)})")
+        if mesh.rank == 0:
+            print(f"R mean:{mean:.4f} std:{std:.4f}"
+                  + ("" if len(hits) >= r_target else f" (n={len(hits)})"))
         return mean, std
 
     def gen_example(self, captions_by_key: Dict[str, List[str]],
@@ -444,6 +510,9 @@ class CondGanTrainer:
                 "gen_example with GAN.B_DCGAN: the JAX trainer's gen_example "
                 "fails on GDCGan too (it pairs attention map k with image "
                 "k + 1, and GDCGan gives one image); ROADMAP.md F20")
+        if not self.mesh.writes:  # rank 0 renders them
+            self.mesh.barrier()
+            return
         sampler = make_sampler(self.cfg, *self.eval_models(),
                                return_attn=True)
         draw = torch.Generator().manual_seed(0)
@@ -453,6 +522,7 @@ class CondGanTrainer:
                                  draw, self._out(key),
                                  lambda j, k, s=s: f"{s}_s_{j}_g{k}.png",
                                  lambda k, s=s: f"{s}_a{k}.png")
+        self.mesh.barrier()
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -472,4 +542,7 @@ def main(argv: Optional[Sequence[str]] = None,
     trainer = CondGanTrainer(cfg, args.device, DTYPES[args.dtype], args.seed,
                              clip_cfg)
     trainer.train_steps(args.steps)
+    if trainer.device.type == "cuda" and trainer.mesh.rank == 0:
+        print("kernel launches: " + json.dumps(dict(sorted(
+            LAUNCHES.items()))), flush=True)
     return trainer

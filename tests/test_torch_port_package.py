@@ -230,3 +230,10 @@ def test_import_guard_covers_every_module_of_the_data_slice():
             "inception_score.py"} <= sources
     for name in native.SOURCES + native.HEADERS:
         assert (native.CSRC_DIR / name).is_file()
+
+
+def test_import_guard_covers_every_module_of_the_parallel_slice():
+    """The modules the parallelism slice added."""
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/tp.py"} <= sources
