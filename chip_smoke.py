@@ -528,6 +528,38 @@ def check_reschain(results):
     folded module weights against the eval module chain."""
     import torch
 
+    from t2igan_torch.ops.kernels.reschain import resblock_chain_up_fused
+
+    results["reschain"]["max_abs_err"] = check_reschain_cases(
+        RESCHAIN_CASES)
+
+    # Folded module weights through K3 against the eval module chain, f32,
+    # at the last stage's shape: one bound covers fold and kernel.
+    mods, chain = tail_modules(TAIL_CHANNELS, 2, True, torch.float32, 9)
+    x, _, _, _ = reschain_inputs(4, STAGE_HW[1], TAIL_CHANNELS, 2, False,
+                                 torch.float32, 9)
+    with torch.no_grad():
+        want = chain(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        got = resblock_chain_up_fused(
+            x, [m.fold() for m in mods[:2]], *mods[2].fold(),
+            rgb_kernel=mods[3].fold(), want_h=False)
+    err = (got - want).abs().max().item()
+    tol = 5 * 9 * TAIL_CHANNELS * F32_UNIT + 1e-6  # images in [-1, 1]
+    print(f"check reschain f32 on folded weights vs the eval module chain, "
+          f"B=4 HW={STAGE_HW[1][0]}x{STAGE_HW[1][1]} C={TAIL_CHANNELS} R=2 "
+          f"rgb: max_abs_err="
+          f"{err:.3e} tol={tol:.3e} {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError("K3 on folded weights disagrees with the "
+                             "module chain")
+
+
+def check_reschain_cases(cases, seed=200) -> float:
+    """K3 against resblock_chain_up_plain on the card in f32 (TF32 off)
+    and bf16 at each of ``cases`` (``RESCHAIN_CASES``' layout); returns
+    the largest f32 error."""
+    import torch
+
     from t2igan_torch.ops.kernels.reschain import (resblock_chain_up_fused,
                                                    resblock_chain_up_plain)
 
@@ -535,10 +567,9 @@ def check_reschain(results):
     torch.backends.cudnn.allow_tf32 = False
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (b, hw, c, n_res, rgb, want_h, shift) in enumerate(
-                RESCHAIN_CASES):
+        for i, (b, hw, c, n_res, rgb, want_h, shift) in enumerate(cases):
             x, rb, up, head = reschain_inputs(b, hw, c, n_res, rgb, dtype,
-                                              200 + i, shift)
+                                              seed + i, shift)
             out = _outputs(resblock_chain_up_fused(x, rb, *up, head, want_h))
             ref = _outputs(resblock_chain_up_plain(x, rb, *up, head, want_h))
             if dtype == torch.bfloat16:
@@ -581,54 +612,34 @@ def check_reschain(results):
             if not ok:
                 raise AssertionError("reschain kernel disagrees with "
                                      "resblock_chain_up_plain")
-    results["reschain"]["max_abs_err"] = worst
-
-    # Folded module weights through K3 against the eval module chain, f32,
-    # at the last stage's shape: one bound covers fold and kernel.
-    mods, chain = tail_modules(TAIL_CHANNELS, 2, True, torch.float32, 9)
-    x, _, _, _ = reschain_inputs(4, STAGE_HW[1], TAIL_CHANNELS, 2, False,
-                                 torch.float32, 9)
-    with torch.no_grad():
-        want = chain(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        got = resblock_chain_up_fused(
-            x, [m.fold() for m in mods[:2]], *mods[2].fold(),
-            rgb_kernel=mods[3].fold(), want_h=False)
-    err = (got - want).abs().max().item()
-    tol = 5 * 9 * TAIL_CHANNELS * F32_UNIT + 1e-6  # images in [-1, 1]
-    print(f"check reschain f32 on folded weights vs the eval module chain, "
-          f"B=4 HW={STAGE_HW[1][0]}x{STAGE_HW[1][1]} C={TAIL_CHANNELS} R=2 "
-          f"rgb: max_abs_err="
-          f"{err:.3e} tol={tol:.3e} {'ok' if err <= tol else 'FAIL'}")
-    if not err <= tol:
-        raise AssertionError("K3 on folded weights disagrees with the "
-                             "module chain")
+    return worst
 
 
-def drive_sampler():
-    """Phase 3: the sampler at full width through the generate entry point."""
+def drive_sampler(name="eval_clip_bird.yml"):
+    """Phase 3 (10a with ``eval_clip_coco.yml``): the sampler at the full
+    width of the config ``name`` through the generate entry point."""
     import torch
 
-    from t2igan_torch.config import cfg_from_dict
-    from t2igan_torch.configs import EVAL_CLIP_BIRD
     from t2igan_torch.generate import build_models, generate
     from t2igan_torch.ops.kernels import LAUNCHES
     from t2igan_torch.train.steps import make_sampler
 
-    cfg = cfg_from_dict(EVAL_CLIP_BIRD)
+    cfg = fused_cfg(False, name)
     batch = cfg.TRAIN.BATCH_SIZE
     captions = [CAPTIONS[i % len(CAPTIONS)] for i in range(2 * batch)]
-    out_dir = os.path.join("output", "chip_smoke")
+    out_dir = os.path.join("output", "chip_smoke", name[:-4])
     calls = -(-len(captions) // batch)
 
-    for name in list(LAUNCHES):
-        LAUNCHES[name] = 0
+    for kernel in list(LAUNCHES):
+        LAUNCHES[kernel] = 0
     t0 = time.perf_counter()
     images = generate(cfg, captions, out_dir, batch, torch.bfloat16, seed=0,
                       device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = LAUNCHES["memory_read_fwd"]
-    print(f"sampler path: generate {len(captions)} captions, batch {batch}, "
+    print(f"sampler path: generate, {name} (R_NUM {cfg.GAN.R_NUM}), "
+          f"{len(captions)} captions, batch {batch}, "
           f"bf16, {calls} sampler calls, {seconds:.2f} s with model set-up; "
           f"launches {dict(LAUNCHES)}")
     if launches != 2 * calls or LAUNCHES["memory_read_bwd"] != 0:
@@ -669,26 +680,34 @@ def drive_sampler():
     bf16_gap = max((a - b).abs().max().item() for a, b in
                    zip(runs["cuda", torch.bfloat16],
                        runs["cuda", torch.float32]))
-    print(f"sampler f32 card vs CPU, batch 2: max_abs_diff={gap:.3e} "
-          f"bound={bound:.0e} {'ok' if gap <= bound else 'FAIL'}")
-    print(f"sampler bf16 vs f32 on the card, batch 2: max_abs_diff="
+    print(f"sampler {name} f32 card vs CPU, batch 2: max_abs_diff="
+          f"{gap:.3e} bound={bound:.0e} {'ok' if gap <= bound else 'FAIL'}")
+    print(f"sampler {name} bf16 vs f32 on the card, batch 2: max_abs_diff="
           f"{bf16_gap:.3e}")
     if not gap <= bound:
         raise AssertionError("f32 sampler on the card disagrees with the CPU")
 
 
-def fused_cfg(fused: bool):
-    from t2igan_torch.config import cfg_from_dict, cfg_replace
-    from t2igan_torch.configs import EVAL_CLIP_BIRD
+def config(name: str):
+    """The packaged config ``name`` (``t2igan_torch.configs``' dict of the
+    same YAML: the card machine may lack ``yaml``)."""
+    from t2igan_torch import configs
+    from t2igan_torch.config import cfg_from_dict
 
-    return cfg_replace(cfg_from_dict(EVAL_CLIP_BIRD),
-                       GAN={"FUSED_TAIL": fused})
+    return cfg_from_dict(getattr(configs, name[:-4].upper()))
 
 
-def drive_fused_sampler(results):
-    """Phase 3b: the sampler with GAN.FUSED_TAIL through the generate
-    entry point, then the f32 fused sampler against the plain-tail one on
-    the card with the same weights."""
+def fused_cfg(fused: bool, name: str = "eval_clip_bird.yml"):
+    from t2igan_torch.config import cfg_replace
+
+    return cfg_replace(config(name), GAN={"FUSED_TAIL": fused})
+
+
+def drive_fused_sampler(results, name="eval_clip_bird.yml"):
+    """Phase 3b (10a with ``eval_clip_coco.yml``): the sampler with
+    GAN.FUSED_TAIL through the generate entry point, then the f32 fused
+    sampler against the plain-tail one on the card with the same weights.
+    ``results`` (phase 3b's) takes K3's launches of the main path."""
     import torch
 
     from t2igan_torch.data.tokenizer import ClipTokenizer
@@ -696,20 +715,22 @@ def drive_fused_sampler(results):
     from t2igan_torch.ops.kernels import LAUNCHES
     from t2igan_torch.train.steps import make_sampler
 
-    cfg = fused_cfg(True)
+    cfg = fused_cfg(True, name)
     batch = cfg.TRAIN.BATCH_SIZE
     captions = [CAPTIONS[i % len(CAPTIONS)] for i in range(2 * batch)]
     calls = -(-len(captions) // batch)
-    for name in list(LAUNCHES):
-        LAUNCHES[name] = 0
+    for kernel in list(LAUNCHES):
+        LAUNCHES[kernel] = 0
     t0 = time.perf_counter()
     images = generate(cfg, captions, None, batch, torch.bfloat16, seed=0,
                       device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(LAUNCHES)
-    results["reschain"]["launches"] = counts.get("reschain", 0)
-    print(f"fused-tail sampler path: generate {len(captions)} captions, "
+    if results is not None:
+        results["reschain"]["launches"] = counts.get("reschain", 0)
+    print(f"fused-tail sampler path: generate, {name} (R_NUM "
+          f"{cfg.GAN.R_NUM}), {len(captions)} captions, "
           f"batch {batch}, bf16, GAN.FUSED_TAIL, {calls} sampler calls, "
           f"{seconds:.2f} s with model set-up; launches {counts}")
     if (counts.get("reschain") != 2 * calls
@@ -733,8 +754,8 @@ def drive_fused_sampler(results):
     runs = {}
     for fused, dtype in ((False, torch.float32), (True, torch.float32),
                          (True, torch.bfloat16)):
-        clip, gen = build_models(fused_cfg(fused), 0, torch.device("cuda"),
-                                 dtype)
+        clip, gen = build_models(fused_cfg(fused, name), 0,
+                                 torch.device("cuda"), dtype)
         sample = make_sampler(cfg, clip, gen)
         runs[fused, dtype] = [f.float() for f in sample(
             tok["input_ids"], tok["attention_mask"], z, eps)]
@@ -746,25 +767,27 @@ def drive_fused_sampler(results):
               zip(runs[True, torch.float32], runs[False, torch.float32]))
     bf16_gap = max((a - b).abs().max().item() for a, b in
                    zip(runs[True, torch.bfloat16], runs[True, torch.float32]))
-    print(f"fused-tail sampler f32 vs plain-tail sampler f32 on the card, "
-          f"batch 2: max_abs_diff={gap:.3e} bound={bound:.0e} "
+    print(f"fused-tail sampler {name} f32 vs plain-tail sampler f32 on the "
+          f"card, batch 2: max_abs_diff={gap:.3e} bound={bound:.0e} "
           f"{'ok' if gap <= bound else 'FAIL'}")
-    print(f"fused-tail sampler bf16 vs f32 on the card, batch 2: "
+    print(f"fused-tail sampler {name} bf16 vs f32 on the card, batch 2: "
           f"max_abs_diff={bf16_gap:.3e}")
     if not gap <= bound:
         raise AssertionError("fused-tail sampler disagrees with the plain "
                              "tail")
 
 
-def geneval_models(fused, device, dtype):
-    """CLIP, the generator (weights from seed 0) and the FID Inception-v3
-    (random weights from seed 7) on ``device`` in ``dtype``."""
+def geneval_models(fused, device, dtype, name="eval_clip_bird.yml"):
+    """CLIP, the generator of the config ``name`` (weights from seed 0) and
+    the FID Inception-v3 (random weights from seed 7) on ``device`` in
+    ``dtype``."""
     import torch
 
     from t2igan_torch.generate import build_models
     from t2igan_torch.models.inception import InceptionV3, init_inception_
 
-    clip, gen = build_models(fused_cfg(fused), 0, torch.device(device), dtype)
+    clip, gen = build_models(fused_cfg(fused, name), 0, torch.device(device),
+                             dtype)
     inception = init_inception_(InceptionV3("fid"),
                                 torch.Generator().manual_seed(7))
     inception = inception.to(device, dtype,
@@ -854,19 +877,18 @@ def drive_geneval():
             raise AssertionError("gen+eval launch counts or FID wrong")
 
 
-def drive_train_path(results):
-    """Phase 4a: 3 bf16 steps of the train_gan trainer at the full width
-    of clip_bird_dmgan.yml, the YAML's batch of 4, with GAN.FUSED_TAIL set:
-    the fused tail is eval only, so no step may launch K3."""
+def drive_train_path(results, name="clip_bird_dmgan.yml"):
+    """Phase 4a (10a with ``clip_coco_dmgan.yml``): 3 bf16 steps of the
+    train_gan trainer at the full width of the config ``name``, the YAML's
+    batch of 4, with GAN.FUSED_TAIL set: the fused tail is eval only, so
+    no step may launch K3.  ``results`` (phase 4a's) takes K1's and K2's
+    launches of the main path."""
     import torch
 
-    from t2igan_torch.config import cfg_from_dict, cfg_replace
-    from t2igan_torch.configs import CLIP_BIRD_DMGAN
     from t2igan_torch.ops.kernels import LAUNCHES
     from t2igan_torch.train.train_gan import CondGanTrainer
 
-    cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
-                      GAN={"FUSED_TAIL": True})
+    cfg = fused_cfg(True, name)
     t0 = time.perf_counter()
     trainer = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0)
     setup = time.perf_counter() - t0
@@ -881,8 +903,8 @@ def drive_train_path(results):
                 "head u": d.cond_head.joint.conv.u}
 
     first = {k: t.detach().clone() for k, t in snap().items()}
-    for name in list(LAUNCHES):
-        LAUNCHES[name] = 0
+    for kernel in list(LAUNCHES):
+        LAUNCHES[kernel] = 0
     t0 = time.perf_counter()
     per_step = []
     for _ in range(3):
@@ -896,9 +918,11 @@ def drive_train_path(results):
         if bad:
             raise AssertionError(f"non-finite metrics {bad}")
     seconds = time.perf_counter() - t0
-    for name in ("memory_read_fwd", "memory_read_bwd"):
-        results[name]["launches"] = LAUNCHES[name]
-    print(f"train path: train_gan, clip_bird_dmgan.yml full width with "
+    if results is not None:
+        for kernel in ("memory_read_fwd", "memory_read_bwd"):
+            results[kernel]["launches"] = LAUNCHES[kernel]
+    print(f"train path: train_gan, {name} full width (R_NUM "
+          f"{cfg.GAN.R_NUM}, LAMBDA {cfg.TRAIN.SMOOTH.LAMBDA}) with "
           f"GAN.FUSED_TAIL, batch "
           f"{cfg.TRAIN.BATCH_SIZE}, bf16, 3 steps in {seconds:.2f} s "
           f"(set-up {setup:.2f} s); launches {dict(LAUNCHES)}, per step "
@@ -1700,9 +1724,10 @@ def bench_inputs(cfg, b, eos_token_id):
     return ids, mask, z, eps
 
 
-def time_sampler(card):
-    """Phase 5a: the sampler, then gen+eval, at batch 128 in bf16, the JAX
-    bench's gen shape and inputs, with the plain and the fused tail."""
+def time_sampler(card, config_name="eval_clip_bird.yml", geneval=True):
+    """Phase 5a (10a with ``eval_clip_coco.yml`` and no gen+eval): the
+    sampler, then gen+eval, at batch 128 in bf16, the JAX bench's gen
+    shape and inputs, with the plain and the fused tail."""
     import torch
 
     from t2igan_torch.evaluation.fid import make_gen_activation_fn
@@ -1710,13 +1735,18 @@ def time_sampler(card):
 
     b = TIMED_BATCH
     for fused in (False, True):
-        cfg = fused_cfg(fused)
-        clip, gen, inception = geneval_models(fused, "cuda", torch.bfloat16)
+        cfg = fused_cfg(fused, config_name)
+        clip, gen, inception = geneval_models(fused, "cuda", torch.bfloat16,
+                                              config_name)
         args = bench_inputs(cfg, b, clip.cfg.eos_token_id)
         label = "fused tail" if fused else "plain tail"
-        for name, fn in (("sampler", make_sampler(cfg, clip, gen)),
-                         ("gen+eval", make_gen_activation_fn(
-                             cfg, clip, gen, inception))):
+        if config_name != "eval_clip_bird.yml":
+            label += f", {config_name} (R_NUM {cfg.GAN.R_NUM})"
+        paths = [("sampler", make_sampler(cfg, clip, gen))]
+        if geneval:
+            paths.append(("gen+eval", make_gen_activation_fn(
+                cfg, clip, gen, inception)))
+        for name, fn in paths:
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: fn(*args), iters=10)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1726,20 +1756,22 @@ def time_sampler(card):
         del clip, gen, inception
 
 
-def time_reschain(card, results):
+def time_reschain(card, results, n_res=2):
     """Phase 5e: K3 at each stage shape of the timed sampler (batch 128,
-    bf16) against resblock_chain_up_plain and, for context, the port's
-    eval module chain for the same tail, beside its bound, and cuDNN for
-    each conv kind.  K3 runs as the sampler runs it: on operands laid out
-    once (``lay_out_operands``; ``NextStageG`` keeps them), through
-    ``fused_tail``."""
+    bf16, ``n_res`` ResBlocks) against resblock_chain_up_plain and, for
+    context, the port's eval module chain for the same tail, beside its
+    bound, and cuDNN for each conv kind.  K3 runs as the sampler runs it:
+    on operands laid out once (``lay_out_operands``; ``NextStageG`` keeps
+    them), through ``fused_tail``.  With ``results`` None (10a, R = 3)
+    the times are printed only, without the cuDNN yardsticks; returns
+    the two stages' kernel, plain, chain and bound ms."""
     import torch
 
     from t2igan_torch.ops.kernels.reschain import (fused_tail,
                                                    lay_out_operands,
                                                    resblock_chain_up_plain)
 
-    b, c, n_res = TIMED_BATCH, TAIL_CHANNELS, 2
+    b, c = TIMED_BATCH, TAIL_CHANNELS
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     chain_total = 0.0
     for hw, rgb in ((STAGE_HW[0], False), (STAGE_HW[1], True)):
@@ -1779,17 +1811,21 @@ def time_reschain(card, results):
         for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
             totals[key] += val
         chain_total += mod_ms
-        results["reschain"]["bound_by"] = ("bytes" if t_bytes >= t_ops
-                                           else "operations")
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
         del mods, chain, ops
-        time_cudnn_convs(card, x_nchw, rgb)
+        if results is not None:
+            time_cudnn_convs(card, x_nchw, rgb)
         del x, x_nchw
-    results["reschain"].update(totals)
-    # No single PyTorch call computes the fused tail.
-    results["reschain"]["library_ms"] = None
-    print(f"[{card}] reschain, both stages: kernel {totals['ms']:.3f} ms, "
-          f"plain {totals['plain_ms']:.3f} ms, eval module chain "
-          f"{chain_total:.3f} ms, bound {totals['bound_ms']:.3f} ms")
+    if results is not None:
+        results["reschain"].update(totals, bound_by=bound_by)
+        # No single PyTorch call computes the fused tail.
+        results["reschain"]["library_ms"] = None
+    print(f"[{card}] reschain R={n_res}, both stages: kernel "
+          f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, eval "
+          f"module chain {chain_total:.3f} ms, bound "
+          f"{totals['bound_ms']:.3f} ms ({bound_by}), "
+          f"{totals['bound_ms'] / totals['ms']:.1%} of bound")
+    return dict(totals, chain_ms=chain_total)
 
 
 def time_cudnn_convs(card, x_nchw, rgb):
@@ -1915,8 +1951,7 @@ def check_decoder():
           f"{' ok' if not bad else ', FAIL ' + str(bad)}")
     if bad or n < 30:
         raise AssertionError(f"decoded fixtures differ from PIL's: {bad}")
-    return sorted(os.path.join(testdata, name) for name in record["files"]
-                  if name.startswith("cub_"))
+    return cub_sources()
 
 
 def time_loader_parts(card, sources, tree, words, sizes, batch):
@@ -3074,6 +3109,412 @@ def drive_parallel(card):
     print(f"parallel: phase 9 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 10 --
+# The last of the JAX package's surface: the COCO configuration at full
+# width, the long-run checks of tests/test_learning_proof.py and
+# tests/test_training_stability.py, a full-width run of 300 steps and the
+# quality-parity runbook.
+
+# K3 at the COCO sampler's stage shapes (RESCHAIN_CASES' layout): R = 3.
+COCO_RESCHAIN_CASES = [(16, (64, 64), TAIL_CHANNELS, 3, False, True, 0.0),
+                       (16, (128, 128), TAIL_CHANNELS, 3, True, False, 0.0)]
+# tests/test_learning_proof.py's CFG and tests/test_train_steps.py's CFG
+# (the stability check's), as dicts.
+PROOF_CFG = {"TREE": {"BASE_SIZE": 64, "BRANCH_NUM": 1},
+             "GAN": {"GF_DIM": 8, "DF_DIM": 4, "Z_DIM": 16,
+                     "CONDITION_DIM": 16, "R_NUM": 1},
+             "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": 16},
+             "TRAIN": {"BATCH_SIZE": 8, "SMOOTH": {"LAMBDA": 1.0}}}
+STABILITY_CFG = {"TREE": {"BASE_SIZE": 64, "BRANCH_NUM": 2},
+                 "GAN": {"GF_DIM": 8, "DF_DIM": 4, "Z_DIM": 16,
+                         "CONDITION_DIM": 16, "R_NUM": 1},
+                 "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": 16},
+                 "TRAIN": {"BATCH_SIZE": 4}}
+LONG_RUN_STEPS = 300
+
+
+def tiny_clip_cfg():
+    """tests/test_train_steps.py's TINY_CLIP: two 2-layer towers."""
+    from t2igan_torch.models.clip import ClipConfig, ClipTowerConfig
+
+    return ClipConfig(vocab_size=512, max_positions=16, eos_token_id=511,
+                      projection_dim=32, image_size=32, patch_size=16,
+                      region_dim=32, text=ClipTowerConfig(32, 2, 2, 64),
+                      vision=ClipTowerConfig(48, 2, 2, 96))
+
+
+def caption_batch(rng, b, length, vocab=512, eos=511):
+    """tests/test_train_steps.py's ``_caption_batch``: (ids, mask)."""
+    import numpy as np
+
+    ids = np.zeros((b, length), dtype=np.int32)
+    mask = np.zeros((b, length), dtype=np.int32)
+    for i, n in enumerate(rng.integers(4, length + 1, size=b)):
+        ids[i, 0] = vocab - 2
+        ids[i, 1:n - 1] = rng.integers(1, 400, n - 2)
+        ids[i, n - 1:] = eos
+        mask[i, :n] = 1
+    return ids, mask
+
+
+def sn_convs(d):
+    from t2igan_torch.ops.spectral import SNConv
+
+    return [m for m in d.modules() if isinstance(m, SNConv)]
+
+
+def spectral_health(ds):
+    """(largest |norm(u or v) - 1| over every SN conv, the largest
+    spectral estimate u·Wv of each discriminator)."""
+    import torch
+
+    off, sigmas = 0.0, []
+    with torch.no_grad():
+        for d in ds:
+            top = 0.0
+            for conv in sn_convs(d):
+                off = max(off, abs(conv.u.norm().item() - 1.0),
+                          abs(conv.v.norm().item() - 1.0))
+                w2d = conv.weight.permute(0, 2, 3, 1).reshape(
+                    conv.weight.shape[0], -1)
+                top = max(top, torch.dot(conv.u, w2d @ conv.v).item())
+            sigmas.append(top)
+    return off, sigmas
+
+
+def drive_learning_proof(dtype):
+    """10b: tests/test_learning_proof.py on the card: 600 steps of the tiny
+    conditional GAN toward 8 flat-colour targets (its CFG, caption batch
+    and targets; weights from the port's seeds, the EMA at 0.98), with the
+    CPU test's thresholds.  Returns the K1/K2 launches (none: BRANCH_NUM 1
+    has no refinement stage)."""
+    import numpy as np
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.steps import make_gan_step, make_sampler
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    cfg = cfg_from_dict(PROOF_CFG)
+    b, steps = cfg.TRAIN.BATCH_SIZE, 600
+    t0 = time.perf_counter()
+    trainer = CondGanTrainer(cfg, "cuda", dtype, seed=1,
+                             clip_cfg=tiny_clip_cfg())
+    state = trainer.state
+    step = make_gan_step(cfg, trainer.clip, dtype, ema_decay=0.98)
+    rng = np.random.default_rng(0)
+    colors = np.linspace(-0.8, 0.8, b * 3).reshape(b, 3).astype(np.float32)
+    targets = torch.from_numpy(np.broadcast_to(
+        colors[:, None, None, :], (b, 64, 64, 3)).copy()).cuda()
+    ids, mask = (torch.from_numpy(x).cuda()
+                 for x in caption_batch(rng, b, 16))
+    batch = {"images": [targets], "ids": ids, "mask": mask, "ids_2": ids,
+             "mask_2": mask,
+             "class_ids": torch.arange(b, dtype=torch.int32, device="cuda")}
+    z = torch.randn((b, cfg.GAN.Z_DIM), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    eps = torch.zeros((b, cfg.GAN.CONDITION_DIM), device="cuda")
+
+    def dist(gen):
+        fakes = make_sampler(cfg, trainer.clip, gen)(ids, mask, z, eps)
+        return torch.mean((fakes[-1].float() - targets) ** 2).item()
+
+    start = dist(state.gen), dist(state.gen_ema)
+    noise = torch.Generator(device="cuda").manual_seed(3)
+    for kernel in list(LAUNCHES):
+        LAUNCHES[kernel] = 0
+    d_losses, g_losses, ws_losses = [], [], []
+    for _ in range(steps):
+        m = step(state, batch, generator=noise)
+        d_losses.append(m["d_loss0"].item())
+        g_losses.append(m["g_loss"].item())
+        ws_losses.append(m["w_loss"].item() + m["s_loss"].item())
+    launches = dict(LAUNCHES)
+    end = dist(state.gen), dist(state.gen_ema)
+    ws0, ws1 = np.mean(ws_losses[:50]), np.mean(ws_losses[-50:])
+    checks = {
+        "finite": bool(np.isfinite(d_losses).all()
+                       and np.isfinite(g_losses).all()
+                       and np.isfinite(ws_losses).all()),
+        "G distance < 0.65x": end[0] < 0.65 * start[0],
+        "EMA distance < 0.65x": end[1] < 0.65 * start[1],
+        "w + s < 0.7x": ws1 < 0.7 * ws0,
+        "D loss falls": np.mean(d_losses[-50:]) < np.mean(d_losses[:50]),
+        "G loss falls": np.mean(g_losses[-100:]) < np.mean(g_losses[100:200])}
+    ok = all(checks.values()) and not any(launches.values())
+    print(f"long run 10b: learning proof {str(dtype)[6:]}, {steps} steps in "
+          f"{time.perf_counter() - t0:.1f} s: distance G {start[0]:.4f} -> "
+          f"{end[0]:.4f}, EMA G {start[1]:.4f} -> {end[1]:.4f}; w + s "
+          f"{ws0:.3f} -> {ws1:.3f}; D {np.mean(d_losses[:50]):.3f} -> "
+          f"{np.mean(d_losses[-50:]):.3f}; G (100-200 -> last 100) "
+          f"{np.mean(g_losses[100:200]):.3f} -> "
+          f"{np.mean(g_losses[-100:]):.3f}; launches {launches} (want none);"
+          f" {checks} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"learning proof in {dtype} failed: {checks}")
+    return launches
+
+
+def drive_stability(dtype):
+    """10b: tests/test_training_stability.py on the card: 60 steps of the
+    tiny GAN of tests/test_train_steps.py (two scales, batch 4, weights
+    from the port's seeds, a fresh random batch a step), with the CPU
+    test's thresholds; 2 K1 + 2 K2 launches a step (one refinement stage,
+    two caption views)."""
+    import numpy as np
+    import torch
+
+    from t2igan_torch.config import cfg_from_dict
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    cfg = cfg_from_dict(STABILITY_CFG)
+    b, steps = cfg.TRAIN.BATCH_SIZE, 60
+    t0 = time.perf_counter()
+    trainer = CondGanTrainer(cfg, "cuda", dtype, seed=1,
+                             clip_cfg=tiny_clip_cfg())
+    rng = np.random.default_rng(0)
+    noise = torch.Generator(device="cuda").manual_seed(7)
+    for kernel in list(LAUNCHES):
+        LAUNCHES[kernel] = 0
+    g_losses, d_losses = [], []
+    for _ in range(steps):
+        ids, mask = caption_batch(rng, b, 16)
+        ids2, mask2 = caption_batch(rng, b, 16)
+        batch = {"images": [torch.from_numpy(rng.standard_normal(
+                     (b, s, s, 3)).astype(np.float32) * 0.3).cuda()
+                     for s in (64, 128)],
+                 "ids": ids, "mask": mask, "ids_2": ids2, "mask_2": mask2,
+                 "class_ids": rng.integers(0, 3, b).astype(np.int32)}
+        m = trainer.step_fn(trainer.state, batch, generator=noise)
+        g_losses.append(m["g_loss"].item())
+        d_losses.append(m["d_loss0"].item() + m["d_loss1"].item())
+    launches = dict(LAUNCHES)
+    off, sigmas = spectral_health(trainer.state.ds)
+    finite = all(torch.isfinite(p).all().item()
+                 for p in trainer.state.gen.parameters())
+    want = {"memory_read_fwd": 2 * steps, "memory_read_bwd": 2 * steps}
+    ok = (np.isfinite(g_losses).all() and np.isfinite(d_losses).all()
+          and min(d_losses[-10:]) > 1e-3 and finite and off <= 1e-3
+          and all(launches.get(k) == v for k, v in want.items())
+          and launches.get("reschain", 0) == 0)
+    print(f"long run 10b: stability {str(dtype)[6:]}, {steps} steps in "
+          f"{time.perf_counter() - t0:.1f} s: G loss {g_losses[0]:.3f} -> "
+          f"{g_losses[-1]:.3f}, D loss {d_losses[0]:.3f} -> "
+          f"{d_losses[-1]:.3f}, min D over the last 10 "
+          f"{min(d_losses[-10:]):.4f} (> 1e-3), G parameters finite "
+          f"{finite}, spectral vectors' largest |norm - 1| {off:.2e} "
+          f"(<= 1e-3), largest spectral estimate per D "
+          f"{[round(x, 4) for x in sigmas]}; launches {launches} (want "
+          f"{want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"stability check in {dtype} failed")
+    return launches
+
+
+def cub_sources():
+    """The committed CUB-sized JPEG fixtures."""
+    testdata = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "t2igan_torch", "testdata")
+    return sorted(os.path.join(testdata, name)
+                  for name in os.listdir(testdata)
+                  if name.startswith("cub_") and name.endswith(".jpg"))
+
+
+def drive_long_run(card):
+    """10c: 300 bf16 CondGanTrainer steps at clip_bird_dmgan.yml's widths,
+    batch 16, on phase 7's CUB-shaped tree (8 loader workers): finite
+    losses and parameters, unit spectral vectors, min(D loss) over the
+    last 50 steps > 1e-3, 4 K1 + 4 K2 a step; the trajectory every 25
+    steps."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from t2igan_torch.config import cfg_replace
+    from t2igan_torch.data.cub_tree import write_cub_tree
+    from t2igan_torch.data.dataset import TextImageDataset
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        tree = write_cub_tree(tmp, cub_sources(), n_train=96, n_test=32,
+                              n_classes=8, captions_per_image=10, seed=0)
+        cfg = cfg_replace(config("clip_bird_dmgan.yml"), DATA_DIR=tree,
+                          WORKERS=8,
+                          TRAIN={"BATCH_SIZE": TRAIN_BATCH,
+                                 "CLIP_MODEL_CHECKPOINT": ""})
+        trainer = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0)
+        if not isinstance(trainer.dataset, TextImageDataset):
+            raise AssertionError("the long run did not read the tree")
+        state = trainer.state
+        batches = trainer.batches()
+        next(batches)  # the loader's first batch, outside the timing
+        for kernel in list(LAUNCHES):
+            LAUNCHES[kernel] = 0
+        rows = []
+        t0 = time.perf_counter()
+        for i in range(LONG_RUN_STEPS):
+            out = trainer.step_fn(state, next(batches),
+                                  generator=trainer.noise)
+            rows.append({k: v.item() for k, v in out.items()})
+            if (i + 1) % 25 == 0:
+                r = rows[-1]
+                _, sigmas = spectral_health(state.ds)
+                print(f"long run 10c: step {i + 1}: D "
+                      + " ".join(f"{r[f'd_loss{j}']:.4f}"
+                                 for j in range(len(state.ds)))
+                      + f", G {r['g_loss']:.4f}, w + s "
+                      f"{r['w_loss'] + r['s_loss']:.4f}, KL "
+                      f"{r['kl_loss']:.4f}, largest spectral estimate per "
+                      f"D {' '.join(f'{x:.4f}' for x in sigmas)}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    d_total = [sum(r[f"d_loss{j}"] for j in range(len(state.ds)))
+               for r in rows]
+    finite_losses = all(math.isfinite(v) for r in rows for v in r.values())
+    finite_params = all(torch.isfinite(p).all().item() for m in
+                        [state.gen, state.gen_ema, *state.ds]
+                        for p in m.parameters())
+    off, sigmas = spectral_health(state.ds)
+    want = {"memory_read_fwd": 4 * LONG_RUN_STEPS,
+            "memory_read_bwd": 4 * LONG_RUN_STEPS}
+    ok = (finite_losses and finite_params and off <= 1e-3
+          and min(d_total[-50:]) > 1e-3
+          and all(launches.get(k) == v for k, v in want.items())
+          and launches.get("reschain", 0) == 0)
+    print(f"[{card}] long run 10c: {LONG_RUN_STEPS} bf16 steps, batch "
+          f"{TRAIN_BATCH}, clip_bird_dmgan.yml widths on the CUB-shaped "
+          f"tree: {seconds:.1f} s, {1000 * seconds / LONG_RUN_STEPS:.3f} "
+          f"ms/step with the loader; losses finite {finite_losses}, "
+          f"parameters finite {finite_params}, spectral vectors' largest "
+          f"|norm - 1| {off:.2e}, min D loss over the last 50 "
+          f"{min(d_total[-50:]):.4f} (> 1e-3), D loss first/last 25 "
+          f"{np.mean(d_total[:25]):.4f} / {np.mean(d_total[-25:]):.4f}; "
+          f"launches {launches} (want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 300-step run failed its checks")
+
+
+def run_runbook(here, cfg_path, out_dir, extra=()):
+    """``python -m t2igan_torch.quality_parity --dry_run`` as a subprocess
+    on the card: (exit code, results, launches, seconds, output)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "t2igan_torch.quality_parity", "--dry_run",
+         "--cfg", cfg_path, "--output_dir", out_dir, *extra], cwd=here,
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    results, launches = {}, {}
+    if "{" in lines:
+        start = lines.index("{")
+        results = json.loads("\n".join(lines[start:lines.index("}", start)
+                                             + 1]))
+    for line in lines:
+        if line.startswith("kernel launches: "):
+            launches = json.loads(line.split(": ", 1)[1])
+    return proc.returncode, results, launches, seconds, proc
+
+
+def drive_runbook(card):
+    """10d: the quality-parity runbook's dry run on the card with the plain
+    and the fused tail (synthetic data, random weights, batch 8, one
+    round, 64 images): FID of the images against themselves within 1e-6
+    of 0, IS in [1, 1000], R in [0, 1], 2 K1 (and 2 K3 fused) a sweep
+    batch; the fused call with ``--write_baseline`` writes its block to
+    the named file, and the checkout's BASELINE.md stays as it was."""
+    import hashlib
+    import tempfile
+
+    from t2igan_torch import configs
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    baseline = os.path.join(here, "BASELINE.md")
+
+    def sha():
+        with open(baseline, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = sha()
+    batches = 64 // 8
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        fused_path = os.path.join(tmp, "eval_clip_bird_fused.yml")
+        with open(fused_path, "w") as f:  # JSON is YAML
+            json.dump(dict(configs.EVAL_CLIP_BIRD, GAN=dict(
+                configs.EVAL_CLIP_BIRD["GAN"], FUSED_TAIL=True)), f)
+        block = os.path.join(tmp, "baseline.md")
+        for fused, cfg_path, extra in (
+                (False, "t2igan_torch/configs/eval_clip_bird.yml", ()),
+                (True, fused_path, ("--write_baseline", block))):
+            rc, res, launches, seconds, proc = run_runbook(
+                here, cfg_path, os.path.join(tmp, f"run{int(fused)}"), extra)
+            want = {"memory_read_fwd": 2 * batches,
+                    "reschain": 2 * batches if fused else 0}
+            ok = (rc == 0 and abs(res.get("fid", math.nan)) <= 1e-6
+                  and 1.0 <= res.get("is_mean", 0.0) <= 1000.0
+                  and 0.0 <= res.get("r_precision_mean", -1.0) <= 1.0
+                  and all(launches.get(k, 0) == v for k, v in want.items())
+                  and launches.get("memory_read_bwd", 0) == 0)
+            print(f"[{card}] runbook 10d: python -m "
+                  f"t2igan_torch.quality_parity --dry_run "
+                  f"{'fused tail, --write_baseline' if fused else 'plain tail'}"
+                  f": exit {rc} in {seconds:.1f} s (phases "
+                  f"{ {k: round(v, 1) for k, v in res.get('seconds', {}).items()} }"
+                  f" s); FID(X, X) {res.get('fid')!r} (|FID| <= 1e-6), IS "
+                  f"{res.get('is_mean')!r} +- {res.get('is_std')!r}, R "
+                  f"{res.get('r_precision_mean')!r} +- "
+                  f"{res.get('r_precision_std')!r}; launches {launches} "
+                  f"(want {want}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                print(proc.stdout[-4000:] + proc.stderr[-4000:])
+                raise AssertionError("the runbook's dry run failed")
+        with open(block) as f:
+            text = f.read()
+    ok = (text.startswith("\n### Quality parity run — ")
+          and "DRY RUN — synthetic data, random weights" in text
+          and text.count("### Quality parity run") == 1 and sha() == before)
+    print(f"runbook 10d: --write_baseline wrote {len(text)} bytes, one "
+          f"block; BASELINE.md unchanged {sha() == before} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("--write_baseline wrote the wrong thing")
+
+
+def drive_last_surface(card, results):
+    """Phase 10: (a) COCO at full width, (b) the long-run checks in f32 and
+    bf16, (c) 300 full-width bf16 steps on the CUB-shaped tree, (d) the
+    quality-parity runbook's dry run; each part's wall time."""
+    import torch
+
+    t_phase = t0 = time.perf_counter()
+    drive_sampler("eval_clip_coco.yml")
+    drive_fused_sampler(None, "eval_clip_coco.yml")
+    worst = check_reschain_cases(COCO_RESCHAIN_CASES, seed=300)
+    results["reschain"]["max_abs_err"] = max(
+        results["reschain"]["max_abs_err"], worst)
+    drive_train_path(None, "clip_coco_dmgan.yml")
+    time_sampler(card, "eval_clip_coco.yml", geneval=False)
+    time_reschain(card, None, n_res=3)
+    print(f"phase 10a (COCO, R_NUM 3): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        drive_learning_proof(dtype)
+        drive_stability(dtype)
+    print(f"phase 10b (learning proof, stability): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    drive_long_run(card)
+    print(f"phase 10c (300 steps): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    drive_runbook(card)
+    print(f"phase 10d (runbook): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 10 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3140,6 +3581,7 @@ def main() -> int:
     check_figures()
     check_legacy_encoders(card)
     drive_parallel(card)
+    drive_last_surface(card, results)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -44,7 +44,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -119,6 +119,24 @@ def set_data_rng_state(dataset, state) -> None:
         dataset.rng.bit_generator.state = state
 
 
+def same_host_count(saved_by_host: List[Any], mesh: DataMesh) -> bool:
+    """Whether a full state saved with one dataset generator state per host
+    (``saved_by_host``) resumes under ``mesh``'s host count.  If not, a
+    line says so: the trainer restores the model and optimizer state and
+    the epochs done, and the data streams and any part-epoch start afresh
+    under the new layout, as the JAX trainers, which restore the train
+    state only, resume under any device count.  A change of the local rank
+    count alone keeps each host's data state."""
+    if len(saved_by_host) == mesh.host_count:
+        return True
+    if mesh.rank == 0:
+        print(f"NOTE: the state was saved on {len(saved_by_host)} host(s) "
+              f"and resumes on {mesh.host_count}: the model and optimizer "
+              f"state and the epochs done are restored; the data streams "
+              f"and the part-epoch start afresh.")
+    return False
+
+
 class DamsmTrainer:
     """CLIP, its optimizer and the data of DAMSM fine-tuning.
 
@@ -161,13 +179,15 @@ class DamsmTrainer:
         payload, step = self.ckpt.restore()
         if payload is not None:
             self.epoch = restore_damsm_payload(self.state, payload)
-            self.train_batches.epoch = payload["train_order"]
-            self.val_batches.epoch = payload["val_order"]
-            h = mesh.host_index
-            for loader, key in ((self.train_batches, "train_rng"),
-                                (self.val_batches, "val_rng")):
-                set_data_rng_state(loader.dataset, payload.get(
-                    key + "_by_host", [payload.get(key)])[h])
+            rngs = {key: payload.get(key + "_by_host", [payload.get(key)])
+                    for key in ("train_rng", "val_rng")}
+            if same_host_count(rngs["train_rng"], mesh):
+                self.train_batches.epoch = payload["train_order"]
+                self.val_batches.epoch = payload["val_order"]
+                for loader, key in ((self.train_batches, "train_rng"),
+                                    (self.val_batches, "val_rng")):
+                    set_data_rng_state(loader.dataset,
+                                       rngs[key][mesh.host_index])
             print(f"Resumed DAMSM state from step {step} ({self.epoch} "
                   f"epochs done)")
 

@@ -133,7 +133,8 @@ def make_damsm_step(cfg: Config, clip: ClipWithRegionHead,
 
 def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
                   dtype: torch.dtype = torch.float32,
-                  mesh: Optional[DataMesh] = None) -> Callable[..., Dict]:
+                  mesh: Optional[DataMesh] = None,
+                  ema_decay: float = EMA_DECAY) -> Callable[..., Dict]:
     """The adversarial step, as ``t2igan.train.steps.make_gan_step``.
 
     The returned ``step(state, batch, z=None, eps1=None, eps2=None,
@@ -159,7 +160,8 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
        CLIP vision tower on the 256->224 nearest-resized finest fakes, KL
        for both views and 0.2 * NT-Xent of the two image codes; gradients
        reach G only;
-    5. the G optimizer, then the EMA.
+    5. the G optimizer, then the EMA (``ema_decay``, the JAX step's
+       argument of the same name and default).
 
     ``dtype=torch.bfloat16`` runs the forwards under ``torch.autocast``
     (parameters, optimizer state and EMA stay f32); losses are f32.
@@ -303,7 +305,7 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
             p.grad = g
         mesh.all_reduce_grads_(params)
         state.g_opt.step()
-        ema_update(state.gen_ema, gen, EMA_DECAY)
+        ema_update(state.gen_ema, gen, ema_decay)
         state.step += 1
 
         metrics["g_loss"] = total.detach()

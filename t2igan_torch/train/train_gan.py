@@ -26,7 +26,9 @@ reach the card from pinned memory ahead of the step.  CLIP stays frozen.
   after the one in the file's name;
 * a directory, or an empty ``NET_G`` with an ``output_dir``, restores the
   newest full train state in it (``Model/state_<step>.pt``,
-  :mod:`t2igan_torch.train.checkpoint`);
+  :mod:`t2igan_torch.train.checkpoint`); saved under another host count,
+  only its model and optimizer state and epochs done are restored
+  (:func:`t2igan_torch.train.pretrain_damsm.same_host_count`);
 * otherwise the seeded weights stay, and the trainer says so.
 
 Every weight load copies into the existing tensors (``copy_`` or
@@ -85,7 +87,7 @@ from t2igan_torch.train.checkpoint import (CheckpointManager,
                                            restore_gan_payload)
 from t2igan_torch.train.export import load_generator_weights
 from t2igan_torch.train.pretrain_damsm import (data_rng_state, make_dataset,
-                                               make_loader,
+                                               make_loader, same_host_count,
                                                set_data_rng_state)
 from t2igan_torch.train.state import init_gan_state
 from t2igan_torch.train.steps import make_gan_step, make_sampler
@@ -184,13 +186,14 @@ class CondGanTrainer:
             payload, step = CheckpointManager(resume_dir).restore()
             if payload is not None:
                 saved = restore_gan_payload(state, payload, self.noise)
-                self.epoch, self._epoch_left = saved["epoch"], \
-                    saved["epoch_left"]
-                self.loader.epoch = saved["loader_epoch"]
-                self._data_rng = payload.get(
-                    "data_rng_by_host", [saved["data_rng"]])[
-                        self.mesh.host_index]
-                set_data_rng_state(self.dataset, self._data_rng)
+                self.epoch = saved["epoch"]
+                by_host = payload.get("data_rng_by_host",
+                                      [saved["data_rng"]])
+                if same_host_count(by_host, self.mesh):
+                    self._epoch_left = saved["epoch_left"]
+                    self.loader.epoch = saved["loader_epoch"]
+                    self._data_rng = by_host[self.mesh.host_index]
+                    set_data_rng_state(self.dataset, self._data_rng)
                 print(f"Resumed GAN state from step {step} ({self.epoch} "
                       f"epochs done) in {resume_dir}")
                 return

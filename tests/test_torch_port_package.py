@@ -104,6 +104,40 @@ def test_damsm_config_dict_is_the_packaged_yaml():
         tconfig.cfg_from_file(str(path))
 
 
+@pytest.mark.parametrize("path", JAX_CONFIGS,
+                         ids=lambda p: str(p.relative_to(REPO / "t2igan")))
+def test_every_jax_yaml_has_a_byte_equal_copy(path):
+    rel = path.relative_to(REPO / "t2igan" / "configs")
+    assert (PORT / "configs" / rel).read_bytes() == path.read_bytes()
+
+
+def _config_dicts():
+    from t2igan_torch import configs
+
+    return sorted(name for name, val in vars(configs).items()
+                  if name.isupper() and isinstance(val, dict))
+
+
+def test_config_dicts_include_the_coco_pair():
+    assert {"EVAL_CLIP_BIRD", "CLIP_BIRD_DMGAN", "DAMSM_BIRD",
+            "EVAL_CLIP_COCO", "CLIP_COCO_DMGAN"} <= set(_config_dicts())
+
+
+@pytest.mark.parametrize("name", _config_dicts())
+def test_every_config_dict_is_its_yaml(name):
+    """``NAME`` is ``configs/name.yml``, ``DAMSM_NAME`` is
+    ``configs/damsm/name.yml``."""
+    import yaml
+
+    from t2igan_torch import configs
+
+    path = PORT / "configs" / (name.lower().replace("damsm_", "damsm/")
+                               + ".yml")
+    d = getattr(configs, name)
+    assert d == yaml.safe_load(path.read_text())
+    assert tconfig.cfg_from_dict(d) == tconfig.cfg_from_file(str(path))
+
+
 def _assert_same_tokens(ours, ref, captions):
     a, b = ours(captions, max_length=77), ref(captions, max_length=77)
     np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
@@ -237,3 +271,9 @@ def test_import_guard_covers_every_module_of_the_parallel_slice():
     sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"parallel/__init__.py", "parallel/mesh.py",
             "parallel/tp.py"} <= sources
+
+
+def test_import_guard_covers_the_quality_parity_runbook():
+    """The runbook's module is among the sources the two guards walk."""
+    sources = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert "quality_parity.py" in sources

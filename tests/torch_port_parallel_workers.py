@@ -9,6 +9,7 @@ test compares with the JAX package in its own process.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import signal
@@ -24,7 +25,8 @@ from t2igan_torch.models.generator import BatchNorm, global_batch_stats
 from t2igan_torch.ops.kernels import LAUNCHES
 from t2igan_torch.parallel import tp
 from t2igan_torch.parallel.mesh import DataMesh
-from t2igan_torch.train.pretrain_damsm import DamsmTrainer
+from t2igan_torch.train import train_gan
+from t2igan_torch.train.pretrain_damsm import DamsmTrainer, data_rng_state
 from t2igan_torch.train.state import (damsm_optimizer, init_damsm_state,
                                       init_gan_state)
 from t2igan_torch.train.steps import (make_damsm_loss, make_damsm_step,
@@ -199,6 +201,49 @@ def resume(mesh: DataMesh, cfg, clip_cfg, root, stop_at):
     return {"whole": trainer_state(whole), "resumed": trainer_state(again),
             "stopped": stopped, "resumed_at": resumed_at,
             "files": sorted(os.listdir(os.path.join(out, "Model")))}
+
+
+def resume_step(mesh: DataMesh, cfg, clip_cfg, sd, out_dir, batch, noise,
+                lr, hosts: bool = False, loader_epoch: int = 0,
+                draws: int = 0):
+    """A ``CondGanTrainer`` with SGD at ``lr`` (as the JAX references'
+    optimizers) resumes the newest full state under ``out_dir`` (or starts
+    from G, its EMA and the discriminators of ``sd``; CLIP always from
+    ``sd["clip"]``), takes one GAN step on this rank's rows of the global
+    ``batch`` with the global ``noise``, marks the data state
+    (``loader_epoch``, and the dataset generator ``draws + rank`` draws
+    on) and saves the full state.  With ``hosts`` every rank is a host of
+    its own.  Returns what was resumed (step, data state) and the state
+    after the step.  The trainer's ``init_gan_state`` is swapped for the
+    rest of the process (a rank program's own; a test calling this in its
+    own process restores it)."""
+    if hosts:
+        mesh = dataclasses.replace(mesh, host_index=mesh.rank,
+                                   host_count=mesh.world, local_index=0,
+                                   local_count=1)
+    sgd = functools.partial(torch.optim.SGD, lr=lr)
+    train_gan.init_gan_state = functools.partial(init_gan_state, g_tx=sgd,
+                                                 d_tx=sgd)
+    trainer = CondGanTrainer(cfg, "cpu", clip_cfg=clip_cfg,
+                             output_dir=out_dir, mesh=mesh)
+    trainer.clip.load_state_dict(sd["clip"])
+    s = trainer.state
+    if s.step == 0:
+        s.gen.load_state_dict(sd["gen"])
+        s.gen_ema.load_state_dict(sd["gen"])
+        for d, d_sd in zip(s.ds, sd["ds"]):
+            d.load_state_dict(d_sd)
+    resumed = {"step": s.step, "loader_epoch": trainer.loader.epoch,
+               "data_rng": data_rng_state(trainer.dataset)}
+    metrics = trainer.step_fn(s, local_batch(batch, mesh),
+                              *map(torch.as_tensor, noise))
+    trainer.loader.epoch = loader_epoch
+    trainer.dataset.rng.random(draws + mesh.rank)
+    trainer._data_rng = data_rng_state(trainer.dataset)
+    trainer.save_state()
+    return {"resumed": resumed, "saved_rng": trainer._data_rng,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "after": states(s.gen, s.gen_ema, *s.ds)}
 
 
 def damsm_trainer(mesh: DataMesh, cfg, clip_cfg, out_dir):
