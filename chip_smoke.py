@@ -80,7 +80,13 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    cuDNN for each of its conv kinds, as a yardstick), with CUDA events.  The kernel rows are device times: the calls are queued
    behind a sleep kernel, so the card runs them back to back whatever the
    host takes to launch them; the host time of a wrapper call is printed
-   beside them.
+   beside them.  (5g) The f32 routes, every entry point's default dtype:
+   K1 f32 (b128) and K2 f32 (b16) beside SDPA in f32 with TF32 off, K3
+   f32 at R = 2 and 3 beside the f32 module chain, each against the f32
+   bound (bytes, or the f32 work as 3xTF32 on the tensor cores), then
+   the f32 train step at batch 16 and 4 and the f32 sampler at batch 128
+   and 10, printed as one ``{"f32_rows": ...}`` line;
+   ``time_f32`` runs these rows alone for an A/B against another tree.
 
 7. (after phase 5) drives real data: the committed JPEG/PNG fixtures
    decoded by the port's own decoder and held to the sha256 of PIL's RGB
@@ -154,10 +160,10 @@ CAPTIONS = [
     "this is a green bird with a curved beak",
 ]
 
-# H100 SXM data-sheet peaks: device memory rate, dense bf16 tensor-core rate,
-# f32 rate outside the tensor cores.
+# H100 SXM data-sheet peaks: device memory rate, dense bf16 and TF32
+# tensor-core rates, f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 # memory read: batch of the timed sampler, of the timed train step, and
 # the two refinement stages.
@@ -287,6 +293,39 @@ def queued_ms(fn, iters: int, warmup: int = 3):
                        "had queued them: does the call synchronize?")
 
 
+def f32_bound(nbytes, flops):
+    """The least time (ms) an f32 function may take on the card: the larger
+    of its bytes over the memory rate and its f32 work done as 3xTF32 (three
+    TF32 products for each f32 one) over the TF32 peak, the cheapest way
+    the card has to do f32 products at f32 accuracy.  Also returns the
+    bytes and 3xTF32 times and the CUDA-core floor (the f32 work over the
+    67 TFLOP/s outside the tensor cores), which a tensor-core kernel may
+    beat."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops, flops / PEAK_FLOPS["f32"] * 1e3
+
+
+def f32_bound_text(nbytes, flops):
+    bound, t_bytes, t_ops, t_cuda = f32_bound(nbytes, flops)
+    return (f"bound {bound:.4f} ms (bytes {nbytes / 1e6:.1f} MB -> "
+            f"{t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP as 3xTF32 -> "
+            f"{t_ops:.4f} ms; CUDA-core floor {t_cuda:.4f} ms)")
+
+
+def dtype_name(dtype) -> str:
+    """"bf16" or "f32", as the timing lines name the dtype."""
+    return "bf16" if str(dtype) == "torch.bfloat16" else "f32"
+
+
+def add_row(rows, key, **vals):
+    """Add the times in ``vals`` to ``rows[key]`` (phase 5g's f32 rows sum
+    a kernel's two stage shapes); a value that is not a float is set."""
+    row = rows.setdefault(key, {})
+    for name, val in vals.items():
+        row[name] = row.get(name, 0.0) + val if isinstance(val, float) else val
+
+
 def memory_read_inputs(b, hw, dtype, mask, seed, slots=SLOTS,
                        channels=CHANNELS):
     """q [b, h, w, C], k/v [b, L, C] in ``dtype`` and a pad mask: random
@@ -312,6 +351,7 @@ def check_memory_read(results):
     import torch
 
     from t2igan_torch.ops.kernels.memory_read import (fwd_bf16_bound,
+                                                      fwd_f32_bound,
                                                       memory_read_fused,
                                                       memory_read_plain,
                                                       read_f64)
@@ -335,9 +375,10 @@ def check_memory_read(results):
                         (ref - exact).abs().max().item())
                 ok = bool(torch.isfinite(out).all())
                 if dtype == torch.float32:
-                    # C-term f32 dot products of unit normals (logits of
-                    # size ~sqrt(C)) summed in another order than cuBLAS.
-                    tol = 3e-6 * c
+                    # 3e-6 C: C-term f32 dot products of unit normals
+                    # (logits of size ~sqrt(C)) summed in another order
+                    # than cuBLAS, each term 3xTF32 in K1.
+                    tol = fwd_f32_bound(c)
                     tol64 = None
                 else:
                     # K1 rounds the attention to bf16 before p.v, as the
@@ -371,6 +412,7 @@ def check_memory_read_bwd(results):
 
     from t2igan_torch.ops.kernels.memory_read import (MemoryRead,
                                                       bwd_bf16_bound,
+                                                      bwd_f32_bounds,
                                                       grads_f64,
                                                       memory_read_bwd,
                                                       memory_read_bwd_plain,
@@ -392,15 +434,13 @@ def check_memory_read_bwd(results):
                 again = memory_read_bwd(q, k, v, pad, dout)
                 ref = memory_read_bwd_plain(q, k, v, pad, dout)
                 torch.cuda.synchronize()
-                exact, sums, _ = grads_f64(q, k, v, pad, dout)
+                exact = grads_f64(q, k, v, pad, dout)[0]
                 if dtype == torch.float32:
                     # Recursive f32 sums of n terms are off by at most
                     # n * 2^-24 times the sum of the terms' magnitudes;
                     # n is L for dq and HW for dk/dv, plus the C- and
                     # L-term sums inside each term.
-                    n_terms = (slots, hw[0] * hw[1], hw[0] * hw[1])
-                    tols = [(n + c + slots) * F32_UNIT * a.max().item()
-                            for n, a in zip(n_terms, sums)]
+                    tols = bwd_f32_bounds(q, k, v, pad, dout)
                     tols64 = [math.inf] * 3
                 else:
                     # K2 rounds P and ds to bf16 before the three products
@@ -447,9 +487,7 @@ def check_memory_read_bwd(results):
     q, k, v, pad = memory_read_inputs(TRAIN_BATCH, STAGE_HW[1],
                                       torch.float32, "ragged", 7)
     dout = torch.randn(q.shape, device="cuda")
-    tols = [(n + CHANNELS + SLOTS) * F32_UNIT * a.max().item() for n, a in
-            zip((SLOTS, q.shape[1] * q.shape[2], q.shape[1] * q.shape[2]),
-                grads_f64(q, k, v, pad, dout)[1])]
+    tols = bwd_f32_bounds(q, k, v, pad, dout)
     grads = []
     for fn in (MemoryRead.apply, memory_read_plain):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1599,10 +1637,10 @@ def time_damsm_step(card):
     return out
 
 
-def time_train_step(card):
-    """Phase 5b: the train step at batch 16 in bf16, the JAX bench's train
-    shape (GF 64, DF 32, R 2, 3 scales, full CLIP, lr 2e-5, 8 fixture
-    batches)."""
+def time_train_step(card, dtype=None, batch=TRAIN_BATCH):
+    """Phase 5b: the train step at batch 16 in bf16 (``dtype`` None), the
+    JAX bench's train shape (GF 64, DF 32, R 2, 3 scales, full CLIP, lr
+    2e-5, 8 fixture batches); 5g times it in f32 at batch 16 and 4."""
     import torch
 
     from t2igan_torch.config import cfg_from_dict, cfg_replace
@@ -1610,16 +1648,17 @@ def time_train_step(card):
     from t2igan_torch.data.synthetic import bench_train_batches
     from t2igan_torch.train.train_gan import CondGanTrainer
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     cfg = cfg_replace(cfg_from_dict(CLIP_BIRD_DMGAN),
-                      TRAIN={"BATCH_SIZE": TRAIN_BATCH,
+                      TRAIN={"BATCH_SIZE": batch,
                              "DISCRIMINATOR_LR": 2e-5,
                              "GENERATOR_LR": 2e-5})
-    trainer = CondGanTrainer(cfg, "cuda", torch.bfloat16, seed=0)
+    trainer = CondGanTrainer(cfg, "cuda", dtype, seed=0)
     batches = [{k: ([torch.as_tensor(x, device="cuda") for x in v]
                     if k == "images" else torch.as_tensor(v, device="cuda"))
                 for k, v in batch.items()}
                for batch in bench_train_batches(
-                   TRAIN_BATCH, trainer.clip.cfg.eos_token_id)]
+                   cfg.TRAIN.BATCH_SIZE, trainer.clip.cfg.eos_token_id)]
     it = [0]
     last = {}
 
@@ -1635,8 +1674,8 @@ def time_train_step(card):
     ms = cuda_ms(step, iters=10, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = all(math.isfinite(float(v)) for v in last.values())
-    print(f"[{card}] train step bf16 batch {TRAIN_BATCH}: {ms:.3f} ms/step, "
-          f"{1000.0 / ms:.2f} steps/s, {TRAIN_BATCH * 1000.0 / ms:.1f} "
+    print(f"[{card}] train step {dtype_name(dtype)} batch {batch}: {ms:.3f} "
+          f"ms/step, {1000.0 / ms:.2f} steps/s, {batch * 1000.0 / ms:.1f} "
           f"images/s, peak memory {peak:.2f} GiB; losses after {it[0]} "
           f"steps finite {finite}")
     if not finite:
@@ -1644,15 +1683,19 @@ def time_train_step(card):
     return ms
 
 
-def time_memory_read_bwd(card, results, step_ms):
+def time_memory_read_bwd(card, results, step_ms, f32_rows):
     """Phase 5d: K2 against memory_read_bwd_plain and the SDPA backward at
-    each stage shape of the timed train step, beside the bound."""
+    each stage shape of the timed train step, beside the bound; the f32
+    route's sums go to ``f32_rows`` (its bound by :func:`f32_bound`, SDPA
+    in f32 with TF32 off).  ``step_ms``: the bf16 step's time, or None."""
     import torch
     import torch.nn.functional as F
 
     from t2igan_torch.ops.kernels.memory_read import (memory_read_bwd,
                                                       memory_read_bwd_plain)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         for hw in STAGE_HW:
@@ -1668,6 +1711,12 @@ def time_memory_read_bwd(card, results, step_ms):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[name] * 1e3
             bound = max(t_bytes, t_ops)
+            bound_text = (f"bound {bound:.4f} ms (bytes {nbytes / 1e6:.1f} MB"
+                          f" -> {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP "
+                          f"-> {t_ops:.4f} ms)")
+            if name == "f32":
+                bound, t_bytes, t_ops, _ = f32_bound(nbytes, flops)
+                bound_text = f32_bound_text(nbytes, flops)
             keep = (~pad)[:, None, None, :]
             q4 = q.view(b, 1, n, CHANNELS).detach().requires_grad_()
             k4 = k[:, None].detach().requires_grad_()
@@ -1692,17 +1741,21 @@ def time_memory_read_bwd(card, results, step_ms):
                   f"({nbytes / ms / 1e6:.0f} GB/s; host {host:.1f} us a "
                   f"wrapper call), plain "
                   f"{plain:.4f} ms, sdpa backward {lib:.4f} ms (fwd+bwd "
-                  f"{both:.4f} - fwd {fwd:.4f}), bound {bound:.4f} ms (bytes "
-                  f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-                  f"{flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms), "
+                  f"{both:.4f} - fwd {fwd:.4f}), {bound_text}, "
                   f"{bound / ms:.1%} of bound")
+            by = "bytes" if t_bytes >= t_ops else "operations"
             if name == "bf16":
                 for key, val in (("ms", ms), ("plain_ms", plain),
                                  ("bound_ms", bound), ("library_ms", lib)):
                     totals[key] += val
-                results["memory_read_bwd"]["bound_by"] = (
-                    "bytes" if t_bytes >= t_ops else "operations")
+                results["memory_read_bwd"]["bound_by"] = by
+            else:
+                add_row(f32_rows, f"memory_read_bwd f32 B={b}", ms=ms,
+                        plain_ms=plain, bound_ms=bound, library_ms=lib,
+                        bound_by=by)
     results["memory_read_bwd"].update(totals)
+    if step_ms is None:
+        return
     # Two caption views per step, each one launch per stage shape.
     share = 2 * totals["ms"] / step_ms
     print(f"[{card}] K2 in the bf16 batch-{TRAIN_BATCH} train step: 4 "
@@ -1724,19 +1777,23 @@ def bench_inputs(cfg, b, eos_token_id):
     return ids, mask, z, eps
 
 
-def time_sampler(card, config_name="eval_clip_bird.yml", geneval=True):
+def time_sampler(card, config_name="eval_clip_bird.yml", geneval=True,
+                 dtype=None, b=TIMED_BATCH):
     """Phase 5a (10a with ``eval_clip_coco.yml`` and no gen+eval): the
-    sampler, then gen+eval, at batch 128 in bf16, the JAX bench's gen
-    shape and inputs, with the plain and the fused tail."""
+    sampler, then gen+eval, at batch 128 in bf16 (``dtype`` None), the JAX
+    bench's gen shape and inputs, with the plain and the fused tail; 5g
+    times the sampler in f32 at batch 128 and 10.  Returns the ms of each
+    timed call by its label."""
     import torch
 
     from t2igan_torch.evaluation.fid import make_gen_activation_fn
     from t2igan_torch.train.steps import make_sampler
 
-    b = TIMED_BATCH
+    dtype = torch.bfloat16 if dtype is None else dtype
+    out = {}
     for fused in (False, True):
         cfg = fused_cfg(fused, config_name)
-        clip, gen, inception = geneval_models(fused, "cuda", torch.bfloat16,
+        clip, gen, inception = geneval_models(fused, "cuda", dtype,
                                               config_name)
         args = bench_inputs(cfg, b, clip.cfg.eos_token_id)
         label = "fused tail" if fused else "plain tail"
@@ -1750,63 +1807,71 @@ def time_sampler(card, config_name="eval_clip_bird.yml", geneval=True):
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: fn(*args), iters=10)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"[{card}] {name} {label} bf16 batch {b}: {ms:.3f} "
-                  f"ms/batch, {b * 1000.0 / ms:.1f} images/s, peak memory "
-                  f"{peak:.2f} GiB")
+            print(f"[{card}] {name} {label} {dtype_name(dtype)} batch {b}: "
+                  f"{ms:.3f} ms/batch, {b * 1000.0 / ms:.1f} images/s, peak "
+                  f"memory {peak:.2f} GiB")
+            out[f"{name} {label}"] = ms
         del clip, gen, inception
+    return out
 
 
-def time_reschain(card, results, n_res=2):
+def time_reschain(card, results, n_res=2, dtype=None):
     """Phase 5e: K3 at each stage shape of the timed sampler (batch 128,
     bf16, ``n_res`` ResBlocks) against resblock_chain_up_plain and, for
     context, the port's eval module chain for the same tail, beside its
     bound, and cuDNN for each conv kind.  K3 runs as the sampler runs it:
     on operands laid out once (``lay_out_operands``; ``NextStageG`` keeps
-    them), through ``fused_tail``.  With ``results`` None (10a, R = 3)
-    the times are printed only, without the cuDNN yardsticks; returns
-    the two stages' kernel, plain, chain and bound ms."""
+    them), through ``fused_tail``.  With ``results`` None (10a, R = 3; 5g
+    in f32, TF32 off, bound by :func:`f32_bound`) the times are printed
+    only, without the cuDNN yardsticks; returns the two stages' kernel,
+    plain, chain and bound ms."""
     import torch
 
     from t2igan_torch.ops.kernels.reschain import (fused_tail,
                                                    lay_out_operands,
                                                    resblock_chain_up_plain)
 
+    dtype = torch.bfloat16 if dtype is None else dtype
+    name = dtype_name(dtype)
+    e = 2 if dtype == torch.bfloat16 else 4  # bytes an element
     b, c = TIMED_BATCH, TAIL_CHANNELS
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     chain_total = 0.0
     for hw, rgb in ((STAGE_HW[0], False), (STAGE_HW[1], True)):
-        mods, chain = tail_modules(c, n_res, rgb, torch.bfloat16, 11)
-        x, _, _, _ = reschain_inputs(b, hw, c, n_res, False, torch.bfloat16,
-                                     11)
+        mods, chain = tail_modules(c, n_res, rgb, dtype, 11)
+        x, _, _, _ = reschain_inputs(b, hw, c, n_res, False, dtype, 11)
         rb = [m.fold() for m in mods[:n_res]]
         up = mods[n_res].fold()
         head = mods[-1].fold() if rgb else None
         x_nchw = x.permute(0, 3, 1, 2)
         n = hw[0] * hw[1]
         flops = 2 * b * n * (n_res * 9 * (2 * c * c + c * c) + 16 * c * c)
-        nbytes = 2 * (b * n * c + n_res * 9 * 3 * c * c + 9 * c * c) \
+        nbytes = e * (b * n * c + n_res * 9 * 3 * c * c + 9 * c * c) \
             + 4 * (n_res * 6 * c + 2 * c)
         if rgb:
             flops += 2 * b * 4 * n * 9 * (c // 2) * 3
-            nbytes += 2 * (9 * (c // 2) * 3 + b * 4 * n * 3)
+            nbytes += e * (9 * (c // 2) * 3 + b * 4 * n * 3)
         else:
-            nbytes += 2 * b * 4 * n * (c // 2)
+            nbytes += e * b * 4 * n * (c // 2)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
         bound = max(t_bytes, t_ops)
+        bound_text = (f"bound {bound:.4f} ms (bytes {nbytes / 1e6:.1f} MB -> "
+                      f"{t_bytes:.4f} ms, {flops / 1e12:.3f} TFLOP -> "
+                      f"{t_ops:.4f} ms)")
+        if dtype == torch.float32:
+            bound, t_bytes, t_ops, _ = f32_bound(nbytes, flops)
+            bound_text = f32_bound_text(nbytes, flops)
         with torch.inference_mode():
-            ops = lay_out_operands(rb, *up, head, torch.bfloat16)
+            ops = lay_out_operands(rb, *up, head, dtype)
             ms, host = queued_ms(lambda: fused_tail(x, ops, not rgb), iters=10)
             plain, _ = queued_ms(lambda: resblock_chain_up_plain(
                 x, rb, *up, head, not rgb), iters=5)
             mod_ms, _ = queued_ms(lambda: chain(x_nchw), iters=10)
-        print(f"[{card}] reschain bf16 B={b} HW={hw[0]}x{hw[1]} C={c} "
+        print(f"[{card}] reschain {name} B={b} HW={hw[0]}x{hw[1]} C={c} "
               f"R={n_res} {'RGB head only' if rgb else 'features'}: kernel "
               f"{ms:.4f} ms (host {host:.1f} us a call), plain {plain:.4f} ms, "
-              f"eval module chain "
-              f"{mod_ms:.4f} ms, bound {bound:.4f} ms (bytes "
-              f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-              f"{flops / 1e12:.3f} TFLOP -> {t_ops:.4f} ms), "
+              f"eval module chain {mod_ms:.4f} ms, {bound_text}, "
               f"{bound / ms:.1%} of bound, {flops / ms / 1e9:.1f} TFLOP/s")
         for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
             totals[key] += val
@@ -1820,12 +1885,55 @@ def time_reschain(card, results, n_res=2):
         results["reschain"].update(totals, bound_by=bound_by)
         # No single PyTorch call computes the fused tail.
         results["reschain"]["library_ms"] = None
-    print(f"[{card}] reschain R={n_res}, both stages: kernel "
+    print(f"[{card}] reschain {name} R={n_res}, both stages: kernel "
           f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, eval "
           f"module chain {chain_total:.3f} ms, bound "
           f"{totals['bound_ms']:.3f} ms ({bound_by}), "
           f"{totals['bound_ms'] / totals['ms']:.1%} of bound")
-    return dict(totals, chain_ms=chain_total)
+    return dict(totals, chain_ms=chain_total, bound_by=bound_by)
+
+
+def time_f32_paths(card, f32_rows):
+    """Phase 5g: the f32 routes of the kernels and the paths that launch
+    them, f32 being every entry point's default ``--dtype``: K3 f32 at the
+    sampler's batch-128 stage shapes with R = 2 and COCO's R = 3 beside
+    the f32 eval module chain (TF32 off); the f32 train step (4 K1 + 4 K2
+    launches) at batch 16 and at clip_bird_dmgan.yml's 4; the f32 sampler
+    (2 K1, plus 2 K3 with the fused tail) at batch 128 and at
+    eval_clip_bird.yml's 10.  Adds the rows to ``f32_rows``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for n_res in (2, 3):
+        t = time_reschain(card, None, n_res, torch.float32)
+        add_row(f32_rows, f"reschain f32 B={TIMED_BATCH} R={n_res}",
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                library_ms=t["chain_ms"], bound_by=t["bound_by"])
+    for batch in (TRAIN_BATCH, 4):
+        f32_rows[f"train step f32 batch {batch}"] = {
+            "ms": time_train_step(card, torch.float32, batch)}
+    for batch in (TIMED_BATCH, 10):
+        for label, ms in time_sampler(card, geneval=False,
+                                      dtype=torch.float32, b=batch).items():
+            f32_rows[f"{label} f32 batch {batch}"] = {"ms": ms}
+
+
+def time_f32(card):
+    """Phase 5's f32 rows alone (K1, K2 and K3 in f32 with their bf16
+    neighbours, then the f32 paths), for an A/B against another tree: run
+    from that tree's root with this file copied there, e.g.
+    ``python3 -c 'import chip_smoke_ab as c; c.time_f32(c.card_line())'``.
+    Prints the rows as one JSON line."""
+    from t2igan_torch.ops.kernels import build
+
+    build.build(build.SOURCES)
+    stub = {name: {} for name in ("memory_read_fwd", "memory_read_bwd")}
+    rows = {}
+    time_memory_read(card, stub, rows)
+    time_memory_read_bwd(card, stub, None, rows)
+    time_f32_paths(card, rows)
+    print(json.dumps({"f32_rows": rows, "card": card}))
 
 
 def time_cudnn_convs(card, x_nchw, rgb):
@@ -1874,15 +1982,19 @@ def time_cudnn_convs(card, x_nchw, rgb):
                   f"port) {ms:.4f} ms")
 
 
-def time_memory_read(card, results):
+def time_memory_read(card, results, f32_rows):
     """Phase 5c: K1 against memory_read_plain and SDPA at each stage shape
-    of the timed sampler, beside the bound."""
+    of the timed sampler, beside the bound; the f32 route's sums go to
+    ``f32_rows`` (its bound by :func:`f32_bound`, SDPA in f32 with TF32
+    off)."""
     import torch
     import torch.nn.functional as F
 
     from t2igan_torch.ops.kernels.memory_read import (memory_read_fused,
                                                       memory_read_plain)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         for hw in STAGE_HW:
@@ -1897,6 +2009,12 @@ def time_memory_read(card, results):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[name] * 1e3
             bound = max(t_bytes, t_ops)
+            bound_text = (f"bound {bound:.4f} ms (bytes {nbytes / 1e6:.1f} MB"
+                          f" -> {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP "
+                          f"-> {t_ops:.4f} ms)")
+            if name == "f32":
+                bound, t_bytes, t_ops, _ = f32_bound(nbytes, flops)
+                bound_text = f32_bound_text(nbytes, flops)
             keep = (~pad)[:, None, None, :]
             q4, k4, v4 = q.view(b, 1, n, CHANNELS), k[:, None], v[:, None]
             ms, host = queued_ms(lambda: memory_read_fused(q, k, v, pad),
@@ -1909,16 +2027,18 @@ def time_memory_read(card, results):
                   f"C={CHANNELS} L={SLOTS}: kernel {ms:.4f} ms "
                   f"({nbytes / ms / 1e6:.0f} GB/s; host {host:.1f} us a "
                   f"wrapper call), plain "
-                  f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms "
-                  f"(bytes {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-                  f"{flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms), "
+                  f"{plain:.4f} ms, sdpa {lib:.4f} ms, {bound_text}, "
                   f"{bound / ms:.1%} of bound")
+            by = "bytes" if t_bytes >= t_ops else "operations"
             if name == "bf16":
                 for key, val in (("ms", ms), ("plain_ms", plain),
                                  ("bound_ms", bound), ("library_ms", lib)):
                     totals[key] += val
-                results["memory_read_fwd"]["bound_by"] = (
-                    "bytes" if t_bytes >= t_ops else "operations")
+                results["memory_read_fwd"]["bound_by"] = by
+            else:
+                add_row(f32_rows, f"memory_read_fwd f32 B={b}", ms=ms,
+                        plain_ms=plain, bound_ms=bound, library_ms=lib,
+                        bound_by=by)
     results["memory_read_fwd"].update(totals)
 
 # ------------------------------------------------------------- phase 7 ----
@@ -3573,9 +3693,12 @@ def main() -> int:
     time_sampler(card)
     step_ms = time_train_step(card)
     damsm_ms = time_damsm_step(card)
-    time_memory_read(card, results)
-    time_memory_read_bwd(card, results, step_ms)
+    f32_rows = {}
+    time_memory_read(card, results, f32_rows)
+    time_memory_read_bwd(card, results, step_ms, f32_rows)
     time_reschain(card, results)
+    time_f32_paths(card, f32_rows)
+    print(json.dumps({"f32_rows": f32_rows}))
     drive_real_data(card, step_ms, damsm_ms["bf16"])
     drive_dcgan(card)
     check_figures()

@@ -42,17 +42,33 @@
 //  * The byte bound is what is left: 41 GFLOP are far below mma.sync's
 //    rate, so no wgmma is needed.
 //
-// f32 (the check dtype), on the CUDA cores (memory_read_fwd_kernel):
-//  * One block per (batch row, tile of 256 pixels); K (transposed, one
-//    padding column against bank conflicts) and V for that row are staged
-//    once in shared memory as f32.
-//  * A warp computes a group of 8 pixels at a time: lanes split the L slots
-//    for the logits, warp-shuffle max and sum give the softmax, then lanes
-//    split the C channels for attn . v.  The group's q rows and attention
-//    rows sit in per-warp shared buffers read as float4 broadcasts.
-//  * L <= 128 and C <= 128 are template parameters (slots and channels per
-//    lane), so every accumulator lives in registers.  Ragged pixel tiles are
-//    masked; slots past L are excluded.
+// f32, on the tensor cores at f32 accuracy (memory_read_fwd_f32_kernel):
+//  * The bf16 kernel's shape: one batch row and a run of pixels a block,
+//    16-pixel row tiles a warp through a two-stage cp.async ring of f32
+//    rows (16-, 8- or 4-byte copies as the query's alignment allows; one
+//    stage where shared memory is short, the next tile's copy then issued
+//    once S is done).  16 warps a block where L + C is small (221 KB of
+//    shared memory at L = 77, C = 64, 128 registers a thread), else 8.
+//  * Every product is 3xTF32 on mma.sync m16n8k8 (mma_tf32.cuh): operands
+//    split into TF32 hi and lo, three products into f32 accumulators.  K
+//    and V are staged once per block through cp.async and split in place
+//    (hi and lo arrays, [LP][CP + 4] each, ~85 KB at L = 77, C = 64), or
+//    kept f32 and split at each read where four arrays do not fit (C = 128
+//    with L > 32).  The query fragments are split in registers.
+//  * S = Q K^T, then the masked softmax in f32 on the accumulator fragments
+//    under the bf16 kernel's rules (softmax_rows).  P is split in registers
+//    and reused as the A operand of O = P V under the permuted slot index
+//    (mma_tf32.cuh), so V is read at rows 2t and 2t + 1.  Nothing is
+//    rounded below f32: O goes out as f32 pairs straight from the
+//    fragments (each quad writes 32 contiguous bytes of a row).
+//  * What bounds it: 3xTF32 triples the tensor-core work, 124 GFLOP at the
+//    128x128 stage of the batch-128 sampler, 0.25 ms at 495 TFLOP/s, below
+//    the 1.08 GB of f32 q and out, 0.32 ms at 3.35 TB/s; the CUDA cores'
+//    67 TFLOP/s would need 0.62 ms for the stage's 41 GFLOP of f32 work.
+//    Timed on the H100, dropping two of the three products saved far
+//    less than two thirds of the time, so issue and latency hold it back
+//    more than the TF32 rate: 16 warps a block helped, two row tiles a
+//    warp (half the shared reads) did not.
 //
 // C interface (loaded with ctypes): t2igan_memory_read_fwd returns the
 // cudaError_t of the launch.  It launches on the given stream, does not
@@ -64,232 +80,9 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;           // warps per block
-constexpr int kGroup = 8;           // pixels a warp computes together
-constexpr int kGroupsPerWarp = 4;   // groups each warp walks through
-constexpr int kTile = kWarps * kGroup * kGroupsPerWarp;  // pixels per block
-constexpr float kNeg = -1e9f;       // padding fill, as in the JAX package
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared memory layout, all f32:
-//   kt [C][LP + 1]        keys, transposed (slot fastest), zero past L
-//   vs [L4][C]            values, rows L..L4-1 zero (L4 = L rounded up to 4)
-//   qs [kWarps][kGroup][C]   each warp's query rows
-//   ps [kWarps][kGroup][LP]  each warp's attention rows, zero past L
-template <int NS>
-__host__ __device__ __forceinline__ size_t smem_floats(int L, int C) {
-  const int LP = 32 * NS;
-  const int L4 = (L + 3) & ~3;
-  return (size_t)C * (LP + 1) + (size_t)L4 * C + (size_t)kWarps * kGroup * C +
-         (size_t)kWarps * kGroup * LP;
-}
-
-// NS: slots per lane (L <= 32*NS).  NC: channels per lane (C <= 32*NC).
-template <typename T, int NS, int NC>
-__global__ void __launch_bounds__(kWarps * 32)
-memory_read_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const uint8_t* __restrict__ pad,
-                       T* __restrict__ out, int hw, int L, int C) {
-  constexpr int LP = 32 * NS;
-  constexpr int KTS = LP + 1;  // row stride of kt
-  const int L4 = (L + 3) & ~3;
-  extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);
-  float* vs = kt + (size_t)C * KTS;
-  float* qs = vs + (size_t)L4 * C;
-  float* ps = qs + (size_t)kWarps * kGroup * C;
-
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t kv_off = (size_t)b * L * C;
-
-  // Stage K (transposed) and V for this batch row; reads are coalesced.
-  for (int i = threadIdx.x; i < L4 * C; i += blockDim.x) {
-    const int s = i / C, c = i - s * C;
-    const bool in = s < L;
-    kt[c * KTS + s] = in ? to_f32(k[kv_off + i]) : 0.f;
-    vs[i] = in ? to_f32(v[kv_off + i]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < C * (LP - L4); i += blockDim.x) {
-    const int c = i / (LP - L4);
-    kt[c * KTS + L4 + (i - c * (LP - L4))] = 0.f;
-  }
-
-  // Per-lane slot state: slot s = lane + 32*i is real (s < L) and kept
-  // (not padding).
-  bool real[NS], keep[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int s = lane + 32 * i;
-    real[i] = s < L;
-    keep[i] = real[i] && (pad == nullptr || pad[(size_t)b * L + s] == 0);
-  }
-  __syncthreads();
-
-  float* qw = qs + warp * kGroup * C;
-  float* pw = ps + warp * kGroup * LP;
-  const size_t q_off = (size_t)b * hw * C;
-
-  for (int g = 0; g < kGroupsPerWarp; ++g) {
-    const int p0 = blockIdx.x * kTile + (g * kWarps + warp) * kGroup;
-    if (p0 >= hw) break;  // the rest of this warp's groups lie past the image
-
-    // The group's query rows as f32; pixels past hw read as zero.
-    const int n_valid = min(kGroup, hw - p0);
-    for (int i = lane; i < kGroup * C; i += 32)
-      qw[i] = i < n_valid * C ? to_f32(q[q_off + (size_t)p0 * C + i]) : 0.f;
-    __syncwarp();
-
-    // logits[p][i] for slot lane + 32*i.
-    float acc[kGroup][NS];
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p)
-#pragma unroll
-      for (int i = 0; i < NS; ++i) acc[p][i] = 0.f;
-    for (int c = 0; c < C; c += 4) {
-      float kr[4][NS];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < NS; ++i) kr[j][i] = kt[(c + j) * KTS + lane + 32 * i];
-#pragma unroll
-      for (int p = 0; p < kGroup; ++p) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + p * C + c);
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          float a = acc[p][i];
-          a = fmaf(qv.x, kr[0][i], a);
-          a = fmaf(qv.y, kr[1][i], a);
-          a = fmaf(qv.z, kr[2][i], a);
-          a = fmaf(qv.w, kr[3][i], a);
-          acc[p][i] = a;
-        }
-      }
-    }
-
-    // Masked softmax over the L slots, one pixel at a time.
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        acc[p][i] = keep[i] ? acc[p][i] : kNeg;
-        if (real[i]) m = fmaxf(m, acc[p][i]);
-      }
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const float e = real[i] ? expf(acc[p][i] - m) : 0.f;
-        acc[p][i] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) pw[p * LP + lane + 32 * i] = acc[p][i] / sum;
-    }
-    __syncwarp();
-
-    // out[p][c] for channel c = lane + 32*n.
-    float o[kGroup][NC];
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p)
-#pragma unroll
-      for (int n = 0; n < NC; ++n) o[p][n] = 0.f;
-    for (int s = 0; s < L4; s += 4) {
-      float vr[4][NC];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const int c = lane + 32 * n;
-          vr[j][n] = c < C ? vs[(s + j) * C + c] : 0.f;
-        }
-#pragma unroll
-      for (int p = 0; p < kGroup; ++p) {
-        const float4 pv = *reinterpret_cast<const float4*>(pw + p * LP + s);
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          float a = o[p][n];
-          a = fmaf(pv.x, vr[0][n], a);
-          a = fmaf(pv.y, vr[1][n], a);
-          a = fmaf(pv.z, vr[2][n], a);
-          a = fmaf(pv.w, vr[3][n], a);
-          o[p][n] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p) {
-      if (p < n_valid) {
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const int c = lane + 32 * n;
-          if (c < C) out[q_off + (size_t)(p0 + p) * C + c] = from_f32<T>(o[p][n]);
-        }
-      }
-    }
-    __syncwarp();  // qw and pw are rewritten by the next group
-  }
-}
-
-template <typename T, int NS, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* pad, void* out,
-                   int batch, int hw, int L, int C, cudaStream_t stream) {
-  const size_t smem = smem_floats<NS>(L, C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(memory_read_fwd_kernel<T, NS, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((hw + kTile - 1) / kTile, batch);
-  memory_read_fwd_kernel<T, NS, NC><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(out), hw, L, C);
-  return cudaGetLastError();
-}
-
-template <typename T, int NS>
-cudaError_t launch_nc(const void* q, const void* k, const void* v, const void* pad, void* out,
-                      int batch, int hw, int L, int C, cudaStream_t stream) {
-  switch ((C + 31) / 32) {
-    case 1: return launch<T, NS, 1>(q, k, v, pad, out, batch, hw, L, C, stream);
-    case 2: return launch<T, NS, 2>(q, k, v, pad, out, batch, hw, L, C, stream);
-    case 3: return launch<T, NS, 3>(q, k, v, pad, out, batch, hw, L, C, stream);
-    case 4: return launch<T, NS, 4>(q, k, v, pad, out, batch, hw, L, C, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_ns(const void* q, const void* k, const void* v, const void* pad, void* out,
-                      int batch, int hw, int L, int C, cudaStream_t stream) {
-  switch ((L + 31) / 32) {
-    case 1: return launch_nc<T, 1>(q, k, v, pad, out, batch, hw, L, C, stream);
-    case 2: return launch_nc<T, 2>(q, k, v, pad, out, batch, hw, L, C, stream);
-    case 3: return launch_nc<T, 3>(q, k, v, pad, out, batch, hw, L, C, stream);
-    case 4: return launch_nc<T, 4>(q, k, v, pad, out, batch, hw, L, C, stream);
-  }
-  return cudaErrorInvalidValue;
-}
 
 // ---- bf16 on the tensor cores ----
 
@@ -453,14 +246,192 @@ cudaError_t tc_launch_l(const void* q, const void* k, const void* v, const void*
   return cudaErrorInvalidValue;
 }
 
+// ---- f32 on the tensor cores, as 3xTF32 ----
+
+constexpr size_t kMaxSmem = 232448;  // per block on sm_90
+
+// Shared memory: K and V [LP][CP + 4] (hi and lo arrays each when
+// pre-split), then each warp's query ring [stages][16][CP + 4].
+constexpr size_t fwd_f32_bytes(int LP, int CP, int warps, int kv_arrays, int stages) {
+  return ((size_t)kv_arrays * LP + (size_t)stages * warps * kTcRows) * mr::f32_stride(CP) *
+         sizeof(float);
+}
+
+// Warps a block: 16 (four a scheduler, to hide the latency of the
+// products' chains) where K and V pre-split and a two-stage ring fit and
+// the kernel's registers fit 128 a thread (L + C small), else 8.
+__host__ __device__ constexpr int fwd_f32_warps(int LP, int CP) {
+  return LP + CP <= 160 && fwd_f32_bytes(LP, CP, 16, 4, 2) <= kMaxSmem ? 16 : 8;
+}
+
+template <int LP, int CP>
+struct FwdF32 {
+  static constexpr int S = mr::f32_stride(CP);
+  static constexpr int kWarps = fwd_f32_warps(LP, CP);
+  static constexpr int kStep = kWarps * kTcRows;  // pixels a block step covers
+  static constexpr bool kPreSplit = fwd_f32_bytes(LP, CP, kWarps, 4, 2) <= kMaxSmem;
+  static constexpr int kStages =
+      kPreSplit || fwd_f32_bytes(LP, CP, kWarps, 2, 2) <= kMaxSmem ? 2 : 1;
+  static constexpr size_t kSmem = fwd_f32_bytes(LP, CP, kWarps, kPreSplit ? 4 : 2, kStages);
+};
+
+template <int LP, int CP>
+__global__ void __launch_bounds__(fwd_f32_warps(LP, CP) * 32)
+memory_read_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const uint8_t* __restrict__ pad,
+                           float* __restrict__ out, int hw, int L, int C, int tile) {
+  using P = FwdF32<LP, CP>;
+  constexpr int S = P::S, kStages = P::kStages, kStep = P::kStep;
+  constexpr bool kPre = P::kPreSplit;
+  constexpr int kArr = kPre ? 2 : 1;  // arrays a staged matrix takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_raw);
+  const mr::SplitTile<kPre> ks{base, base + LP * S};
+  const mr::SplitTile<kPre> vs{base + kArr * LP * S, base + (kArr + 1) * LP * S};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* qw = base + 2 * kArr * LP * S + warp * kStages * kTcRows * S;
+
+  const int b = blockIdx.y;
+  const float* qb = q + (size_t)b * hw * C;
+  float* ob = out + (size_t)b * hw * C;
+  const int p_end = min(hw, blockIdx.x * tile + tile);
+  const int p_first = blockIdx.x * tile + warp * kTcRows;  // this warp's first row tile
+  const int n_own = p_first < p_end ? (p_end - p_first + kStep - 1) / kStep : 0;
+
+  // K, V and the first query tile, all in flight at once; K and V are
+  // split in place once they have landed.
+  mr::stage_f32_async<LP, CP>(ks, k + (size_t)b * L * C, L, C);
+  mr::stage_f32_async<LP, CP>(vs, v + (size_t)b * L * C, L, C);
+  mr::cp_async_commit();
+  if (n_own > 0) mr::load_rows_f32_async<CP>(qw, qb, p_first, kTcRows, p_end, C, lane, 32);
+  mr::cp_async_commit();
+  uint32_t excluded, padded;
+  mr::slot_masks<LP>(pad == nullptr ? nullptr : pad + (size_t)b * L, L, lane, excluded, padded);
+  mr::cp_async_wait<1>();
+  __syncthreads();
+  mr::split_staged<LP, CP>(ks);
+  mr::split_staged<LP, CP>(vs);
+  __syncthreads();
+
+  for (int i = 0; i < n_own; ++i) {
+    const int p0 = p_first + i * kStep;
+    const float* cur = qw + (kStages == 2 ? (i & 1) : 0) * kTcRows * S;
+    if (kStages == 2) {
+      if (i + 1 < n_own)
+        mr::load_rows_f32_async<CP>(qw + ((i + 1) & 1) * kTcRows * S, qb, p0 + kStep, kTcRows,
+                                    p_end, C, lane, 32);
+      mr::cp_async_commit();
+      mr::cp_async_wait<1>();
+    } else {
+      mr::cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    // S = Q K^T: [16, LP] in C fragments of LP / 8 n-tiles.
+    float s[LP / 8][4];
+#pragma unroll
+    for (int j = 0; j < LP / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < CP / 8; ++kc) {
+      uint32_t ah[4], al[4];
+      mr::load_a_f32(cur, S, 0, kc * 8, lane, ah, al);
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        const int row = (8 * j + g) * S + kc * 8 + t;
+        ks.get_b(row, row + 4, bh, bl);
+        mr::mma_3xtf32(s[j], ah, al, bh, bl);
+      }
+    }
+    if (kStages == 1) {  // the query tile is spent: bring in the next one
+      __syncwarp();
+      if (i + 1 < n_own)
+        mr::load_rows_f32_async<CP>(qw, qb, p0 + kStep, kTcRows, p_end, C, lane, 32);
+      mr::cp_async_commit();
+    }
+    mr::softmax_rows<LP>(s, excluded, padded);
+
+    // O = P V, P from registers under the permuted slot index.
+    float o[CP / 8][4];
+#pragma unroll
+    for (int j = 0; j < CP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < LP / 8; ++kk) {
+      uint32_t ph[4], pl[4];
+      mr::c_as_a(s[kk], ph, pl);
+#pragma unroll
+      for (int n = 0; n < CP / 8; ++n) {
+        uint32_t bh[2], bl[2];
+        const int row = (8 * kk + 2 * t) * S + 8 * n + g;
+        vs.get_b(row, row + S, bh, bl);
+        mr::mma_3xtf32(o[n], ph, pl, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + g + 8 * h;
+      if (p < p_end) {
+#pragma unroll
+        for (int n = 0; n < CP / 8; ++n) {
+          const int c = 8 * n + 2 * t;
+          if (c < C)
+            *reinterpret_cast<float2*>(ob + (size_t)p * C + c) =
+                make_float2(o[n][2 * h], o[n][2 * h + 1]);
+        }
+      }
+    }
+    __syncwarp();  // cur is refilled two tiles on (the next tile, with one stage)
+  }
+}
+
+template <int LP, int CP>
+cudaError_t f32_launch(const void* q, const void* k, const void* v, const void* pad, void* out,
+                       int batch, int hw, int L, int C, int tile, cudaStream_t stream) {
+  constexpr size_t smem = FwdF32<LP, CP>::kSmem;
+  static_assert(smem <= kMaxSmem, "shared memory of the f32 forward");
+  auto kernel = memory_read_fwd_f32_kernel<LP, CP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((hw + tile - 1) / tile, batch), FwdF32<LP, CP>::kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<float*>(out), hw, L, C, tile);
+  return cudaGetLastError();
+}
+
+template <int LP>
+cudaError_t f32_launch_c(const void* q, const void* k, const void* v, const void* pad, void* out,
+                         int batch, int hw, int L, int C, int tile, cudaStream_t s) {
+  switch (mr::pick_channels(C)) {
+    case 16: return f32_launch<LP, 16>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 32: return f32_launch<LP, 32>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 64: return f32_launch<LP, 64>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 128: return f32_launch<LP, 128>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t f32_launch_l(const void* q, const void* k, const void* v, const void* pad, void* out,
+                         int batch, int hw, int L, int C, int tile, cudaStream_t s) {
+  switch (mr::pick_slots(L)) {
+    case 16: return f32_launch_c<16>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 32: return f32_launch_c<32>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 64: return f32_launch_c<64>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 80: return f32_launch_c<80>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+    case 128: return f32_launch_c<128>(q, k, v, pad, out, batch, hw, L, C, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, out: [batch, hw, C]; k, v: [batch, L, C], all contiguous, f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1; every pointer 16-byte aligned).
-// pad: [batch, L] bytes, nonzero at a padding slot, or null for no padding.
-// tile: pixels per block of the bf16 kernel, a multiple of 128 in
-// 128..65536 (the f32 kernel takes 256 pixels per block).  Needs
-// 1 <= L <= 128, 4 <= C <= 128 with C % 4 == 0, batch <= 65535.
+// (is_bf16 = 0; every pointer 4-byte aligned) or bf16 (is_bf16 = 1; every
+// pointer 16-byte aligned).  pad: [batch, L] bytes, nonzero at a padding
+// slot, or null for no padding.  tile: pixels per block, a multiple of 128
+// in 128..65536.  Needs 1 <= L <= 128, 4 <= C <= 128 with C % 4 == 0,
+// batch <= 65535.
 extern "C" int t2igan_memory_read_fwd(const void* q, const void* k, const void* v,
                                       const void* pad, void* out, int batch, int hw, int L,
                                       int C, int tile, int is_bf16, void* stream) {
@@ -469,5 +440,5 @@ extern "C" int t2igan_memory_read_fwd(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return (int)tc_launch_l(q, k, v, pad, out, batch, hw, L, C, tile, s);
-  return (int)launch_ns<float>(q, k, v, pad, out, batch, hw, L, C, s);
+  return (int)f32_launch_l(q, k, v, pad, out, batch, hw, L, C, tile, s);
 }

@@ -24,11 +24,11 @@
 // batch 16 moves 101 MB, 0.030 ms at 3.35 TB/s, where its 12.9 GFLOP take
 // 0.013 ms at 989 TFLOP/s.
 //
-// Both versions: one block per (batch row, tile of pixels); the wrapper
-// sizes the tile so that the blocks fill the card (f32: a multiple of 32,
-// at most 1024, ~264 blocks; bf16: a multiple of 128, at most 4096, ~132
-// blocks, one per SM).  The TPU grid ran the pixel tiles in order and summed dK/dV in
-// VMEM scratch.  Here tiles run in parallel: each block writes its f32
+// Both versions: one block of 8 warps per (batch row, run of pixels); the
+// wrapper sizes the run (a multiple of 128 pixels, at most 4096) so that
+// ~132 blocks, one per SM, share the work.  The TPU grid ran the pixel
+// tiles in order and summed dK/dV in VMEM scratch.  Here tiles run in
+// parallel: each block writes its f32
 // partial dK/dV to a workspace [2, batch, tiles, L, C], and a second kernel
 // sums the tiles in order and writes dk/dv in the model dtype.  No atomics,
 // so the gradients are the same from run to run.
@@ -51,18 +51,38 @@
 //    16 x 16 units and stay in registers across the tile (40 a thread at
 //    L = 77, C = 64).
 //
-// f32 (the check dtype), on the CUDA cores (memory_read_bwd_kernel):
-//  * K and V of the row are staged once per block in shared memory as f32,
-//    transposed with one padding column: lanes over slots (logits, dattn)
-//    and lanes over channels (dq = ds . K) both read it without bank
-//    conflicts.
-//  * The block walks its tile in sub-tiles of 32 pixels.  Phase A: each
-//    warp takes 4 pixels, recomputes logits and softmax (lanes over
-//    slots, warp shuffles), dattn and ds, writes attn and ds rows to
-//    shared memory and dq straight to device memory.  Phase B: the whole
-//    block adds ds^T q and attn^T dout of the 32 pixels into dK and dV;
-//    each thread owns fixed 4-slot x 4-channel micro-tiles whose sums stay
-//    in registers across the block's sub-tiles.
+// f32, on the tensor cores at f32 accuracy (memory_read_bwd_f32_kernel):
+//  * The bf16 kernel's phases, every product 3xTF32 on mma.sync m16n8k8
+//    (mma_tf32.cuh: operands split into TF32 hi and lo, three products into
+//    f32 accumulators), nothing rounded below f32.
+//  * Shared memory holds f32 tiles with rows of width + 4 floats, read as
+//    32-bit fragments free of bank conflicts: K and V [LP][CP + 4]
+//    (staged through cp.async; each split in place into hi and lo where
+//    that fits, K first, as it feeds two of phase A's three products, else
+//    split at each read: at L = 77, C = 64, K is split and V is not); the
+//    step's q and dout rows; P and ds
+//    [step][LP + 4].  The step is 128 pixels (8 warps of 16 rows in phase
+//    A) where shared memory allows (216 KB at L = 77, C = 64, one copy
+//    stage), else 64 or 32 pixels with the other warps idle in phase A.
+//  * Phase A, per warp: S = Q K^T and dP = dO V^T; the masked softmax and
+//    ds = P (dP - rowsum(P dP)) in f32 on the fragments, ds = 0 at padding
+//    and past L; dQ = ds K with ds split in registers and reused as the A
+//    operand under the permuted slot index (K read at rows 2t, 2t + 1).
+//    P and ds go to shared memory as f32.
+//  * Phase B, after one barrier, the whole block: dK += ds^T Q (warps 0-3)
+//    and dV += P^T dO (warps 4-7) over the step's pixels, under a permuted
+//    pixel index, so both operands are read at rows 2t and 2t + 1.  Each
+//    warp owns a fixed set of 16 x 8 output tiles (all LP slots and a
+//    quarter of the channels at C >= 32: 40 f32 sums a thread at L = 77,
+//    C = 64), so each fragment it loads feeds several products, and the
+//    sums stay in registers across the run.
+//  * What bounds it: at the train step's shapes the 3xTF32 work, 38.8
+//    GFLOP at the 128x128 stage at batch 16, 0.078 ms at 495 TFLOP/s,
+//    above its 0.20 GB of f32 q, dout and dq, 0.060 ms at 3.35 TB/s; the
+//    CUDA cores' 67 TFLOP/s would need 0.19 ms for its 12.9 GFLOP of f32
+//    work.  With one block an SM, the two barriers a step and the step's
+//    rows loaded only once the last step is done (one copy stage), it
+//    reaches about a quarter of that bound (PERF.md).
 //
 // C interface (loaded with ctypes): t2igan_memory_read_bwd returns the
 // cudaError_t of the two launches.  It launches on the given stream, does
@@ -74,281 +94,16 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                     // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kGroup = 4;                     // pixels a warp takes per sub-tile
-constexpr int kSub = kWarps * kGroup;         // pixels per sub-tile (32)
-constexpr float kNeg = -1e9f;                 // padding fill, as in the JAX package
 constexpr int kReduceThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared memory layout, all f32 (LP = 32*NS slots, KTS = LP + 1):
-//   kt [C][KTS]      keys, transposed, zero past L
-//   vt [C][KTS]      values, transposed, zero past L
-//   qs [kSub][C]     the sub-tile's query rows (zero past hw)
-//   gs [kSub][C]     the sub-tile's dout rows (zero past hw)
-//   ps [kSub][LP]    attention rows, zero past L
-//   dss [kSub][LP]   ds rows, zero past L and at padding
-template <int NS>
-__host__ __device__ __forceinline__ size_t smem_floats(int C) {
-  const int LP = 32 * NS;
-  return 2 * (size_t)C * (LP + 1) + 2 * (size_t)kSub * C + 2 * (size_t)kSub * LP;
-}
-
-// NS: slots per lane (L <= 32*NS).  NC: channels per lane (C <= 32*NC).
-// MT: 4x4 (slot, channel) micro-tiles of dK/dV per thread; the L4 x C
-// outputs (L4 = L rounded up to 4) hold at most 64*NS*NC of them.
-template <typename T, int NS, int NC, int MT>
-__global__ void __launch_bounds__(kThreads)
-memory_read_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const uint8_t* __restrict__ pad,
-                       const T* __restrict__ dout, T* __restrict__ dq,
-                       float* __restrict__ work, int batch, int hw, int L, int C,
-                       int tile) {
-  constexpr int LP = 32 * NS;
-  constexpr int KTS = LP + 1;
-  const int L4 = (L + 3) & ~3;
-  extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);
-  float* vt = kt + (size_t)C * KTS;
-  float* qs = vt + (size_t)C * KTS;
-  float* gs = qs + (size_t)kSub * C;
-  float* ps = gs + (size_t)kSub * C;
-  float* dss = ps + (size_t)kSub * LP;
-
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t kv_off = (size_t)b * L * C;
-
-  // Stage K and V transposed, zero for slots L..LP-1.
-  for (int i = threadIdx.x; i < LP * C; i += kThreads) {
-    const int s = i / C, c = i - s * C;
-    const bool in = s < L;
-    kt[c * KTS + s] = in ? to_f32(k[kv_off + i]) : 0.f;
-    vt[c * KTS + s] = in ? to_f32(v[kv_off + i]) : 0.f;
-  }
-
-  bool real[NS], keep[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int s = lane + 32 * i;
-    real[i] = s < L;
-    keep[i] = real[i] && (pad == nullptr || pad[(size_t)b * L + s] == 0);
-  }
-
-  // This thread's micro-tiles: rows s0..s0+3 and channels c0..c0+3.
-  const int mt_c = C >> 2;
-  const int n_mt = (L4 >> 2) * mt_c;
-  float acc_k[MT][4][4], acc_v[MT][4][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_k[m][i][j] = acc_v[m][i][j] = 0.f;
-  __syncthreads();
-
-  const size_t q_off = (size_t)b * hw * C;
-  const int tile0 = blockIdx.x * tile;
-  const int tile_end = min(hw, tile0 + tile);
-  float* qw = qs + warp * kGroup * C;
-  float* gw = gs + warp * kGroup * C;
-  float* pw = ps + warp * kGroup * LP;
-  float* dw = dss + warp * kGroup * LP;
-
-  for (int base = tile0; base < tile_end; base += kSub) {
-    // ---- Phase A: this warp's kGroup pixels. ----
-    const int p0 = base + warp * kGroup;
-    const int n_valid = max(0, min(kGroup, tile_end - p0));
-    for (int i = lane; i < kGroup * C; i += 32) {
-      const bool in = i < n_valid * C;
-      qw[i] = in ? to_f32(q[q_off + (size_t)p0 * C + i]) : 0.f;
-      gw[i] = in ? to_f32(dout[q_off + (size_t)p0 * C + i]) : 0.f;
-    }
-    __syncwarp();
-
-    float lg[kGroup][NS], da[kGroup][NS];
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p)
-#pragma unroll
-      for (int i = 0; i < NS; ++i) lg[p][i] = da[p][i] = 0.f;
-    for (int c = 0; c < C; c += 4) {
-      float kr[4][NS], vr[4][NS];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          kr[j][i] = kt[(c + j) * KTS + lane + 32 * i];
-          vr[j][i] = vt[(c + j) * KTS + lane + 32 * i];
-        }
-#pragma unroll
-      for (int p = 0; p < kGroup; ++p) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + p * C + c);
-        const float4 gv = *reinterpret_cast<const float4*>(gw + p * C + c);
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          float a = lg[p][i], d = da[p][i];
-          a = fmaf(qv.x, kr[0][i], a);
-          a = fmaf(qv.y, kr[1][i], a);
-          a = fmaf(qv.z, kr[2][i], a);
-          a = fmaf(qv.w, kr[3][i], a);
-          d = fmaf(gv.x, vr[0][i], d);
-          d = fmaf(gv.y, vr[1][i], d);
-          d = fmaf(gv.z, vr[2][i], d);
-          d = fmaf(gv.w, vr[3][i], d);
-          lg[p][i] = a;
-          da[p][i] = d;
-        }
-      }
-    }
-
-    // Masked softmax (as the forward kernel takes it), then ds.
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        lg[p][i] = keep[i] ? lg[p][i] : kNeg;
-        if (real[i]) m = fmaxf(m, lg[p][i]);
-      }
-      m = warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const float e = real[i] ? expf(lg[p][i] - m) : 0.f;
-        lg[p][i] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      float rs = 0.f;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        lg[p][i] = lg[p][i] / sum;  // attn
-        rs = fmaf(lg[p][i], da[p][i], rs);
-      }
-      rs = warp_sum(rs);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int s = lane + 32 * i;
-        pw[p * LP + s] = lg[p][i];
-        dw[p * LP + s] = keep[i] ? lg[p][i] * (da[p][i] - rs) : 0.f;
-      }
-    }
-    __syncwarp();
-
-    // dq[p][c] = sum_s ds[p][s] * k[s][c], lanes over channels.
-    float o[kGroup][NC];
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p)
-#pragma unroll
-      for (int n = 0; n < NC; ++n) o[p][n] = 0.f;
-    for (int s = 0; s < L4; s += 4) {
-      float kr[4][NC];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const int c = lane + 32 * n;
-          kr[j][n] = c < C ? kt[c * KTS + s + j] : 0.f;
-        }
-#pragma unroll
-      for (int p = 0; p < kGroup; ++p) {
-        const float4 dv4 = *reinterpret_cast<const float4*>(dw + p * LP + s);
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          float a = o[p][n];
-          a = fmaf(dv4.x, kr[0][n], a);
-          a = fmaf(dv4.y, kr[1][n], a);
-          a = fmaf(dv4.z, kr[2][n], a);
-          a = fmaf(dv4.w, kr[3][n], a);
-          o[p][n] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < kGroup; ++p) {
-      if (p < n_valid) {
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const int c = lane + 32 * n;
-          if (c < C) dq[q_off + (size_t)(p0 + p) * C + c] = from_f32<T>(o[p][n]);
-        }
-      }
-    }
-    __syncthreads();  // every warp's rows are in shared memory
-
-    // ---- Phase B: dK += ds^T q, dV += attn^T dout over the sub-tile. ----
-    // Pixels past hw have zero q and dout rows, so they add nothing.
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int mt = threadIdx.x + kThreads * m;
-      if (mt < n_mt) {
-        const int s0 = (mt / mt_c) << 2, c0 = (mt % mt_c) << 2;
-        for (int p = 0; p < kSub; ++p) {
-          const float4 d4 = *reinterpret_cast<const float4*>(dss + p * LP + s0);
-          const float4 a4 = *reinterpret_cast<const float4*>(ps + p * LP + s0);
-          const float4 q4 = *reinterpret_cast<const float4*>(qs + p * C + c0);
-          const float4 g4 = *reinterpret_cast<const float4*>(gs + p * C + c0);
-          const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
-          const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
-          const float qr[4] = {q4.x, q4.y, q4.z, q4.w};
-          const float gr[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc_k[m][i][j] = fmaf(dr[i], qr[j], acc_k[m][i][j]);
-              acc_v[m][i][j] = fmaf(ar[i], gr[j], acc_v[m][i][j]);
-            }
-        }
-      }
-    }
-    __syncthreads();  // the next sub-tile rewrites the rows
-  }
-
-  // This block's partial sums: work[0 or 1][b][tile index][s][c].
-  const size_t part = (size_t)L * C;
-  float* wk = work + ((size_t)b * gridDim.x + blockIdx.x) * part;
-  float* wv = wk + (size_t)batch * gridDim.x * part;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int mt = threadIdx.x + kThreads * m;
-    if (mt < n_mt) {
-      const int s0 = (mt / mt_c) << 2, c0 = (mt % mt_c) << 2;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (s0 + i < L) {
-          *reinterpret_cast<float4*>(wk + (size_t)(s0 + i) * C + c0) =
-              make_float4(acc_k[m][i][0], acc_k[m][i][1], acc_k[m][i][2], acc_k[m][i][3]);
-          *reinterpret_cast<float4*>(wv + (size_t)(s0 + i) * C + c0) =
-              make_float4(acc_v[m][i][0], acc_v[m][i][1], acc_v[m][i][2], acc_v[m][i][3]);
-        }
-      }
-    }
-  }
 }
 
 // dk/dv[b][e] = sum over tiles t = 0..n_tiles-1, in order, of
@@ -365,57 +120,6 @@ memory_read_bwd_reduce(const float* __restrict__ work, T* __restrict__ dk,
   for (int t = 0; t < n_tiles; ++t) acc += src[(size_t)t * LC];
   T* dst = which == 0 ? dk : dv;
   dst[(size_t)b * LC + e] = from_f32<T>(acc);
-}
-
-template <typename T, int NS, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
-                   const void* dout, void* dq, void* dk, void* dv, void* work, int batch,
-                   int hw, int L, int C, int tile, cudaStream_t stream) {
-  constexpr int MT = (NS * NC + 3) / 4;
-  auto kernel = memory_read_bwd_kernel<T, NS, NC, MT>;
-  const size_t smem = smem_floats<NS>(C) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (hw + tile - 1) / tile;
-  kernel<<<dim3(n_tiles, batch), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<float*>(work), batch, hw, L, C, tile);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int LC = L * C;
-  memory_read_bwd_reduce<T><<<dim3((LC + kReduceThreads - 1) / kReduceThreads, batch, 2),
-                              kReduceThreads, 0, stream>>>(
-      static_cast<const float*>(work), static_cast<T*>(dk), static_cast<T*>(dv), batch,
-      n_tiles, LC);
-  return cudaGetLastError();
-}
-
-template <typename T, int NS>
-cudaError_t launch_nc(const void* q, const void* k, const void* v, const void* pad,
-                      const void* dout, void* dq, void* dk, void* dv, void* work, int batch,
-                      int hw, int L, int C, int tile, cudaStream_t s) {
-  switch ((C + 31) / 32) {
-    case 1: return launch<T, NS, 1>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-    case 2: return launch<T, NS, 2>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-    case 3: return launch<T, NS, 3>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-    case 4: return launch<T, NS, 4>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_ns(const void* q, const void* k, const void* v, const void* pad,
-                      const void* dout, void* dq, void* dk, void* dv, void* work, int batch,
-                      int hw, int L, int C, int tile, cudaStream_t s) {
-  switch ((L + 31) / 32) {
-    case 1: return launch_nc<T, 1>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-    case 2: return launch_nc<T, 2>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-    case 3: return launch_nc<T, 3>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-    case 4: return launch_nc<T, 4>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
 // ---- bf16 on the tensor cores ----
@@ -700,23 +404,323 @@ cudaError_t tc_launch_l(const void* q, const void* k, const void* v, const void*
   return cudaErrorInvalidValue;
 }
 
+// ---- f32 on the tensor cores, as 3xTF32 ----
+
+// Shared memory: K and V [LP][CP + 4] (hi and lo arrays when pre-split:
+// kv_arrays counts them); the step's q and dout rows [stages][step][CP + 4]
+// each; P and ds [step][LP + 4] each.
+constexpr size_t bwd_f32_bytes(int LP, int CP, int kv_arrays, int warps_a, int stages) {
+  return ((size_t)kv_arrays * LP * mr::f32_stride(CP) +
+          2 * (size_t)stages * kTcRows * warps_a * mr::f32_stride(CP) +
+          2 * (size_t)kTcRows * warps_a * mr::f32_stride(LP)) *
+         sizeof(float);
+}
+
+template <int LP, int CP>
+struct BwdF32 {
+  static constexpr int S = mr::f32_stride(CP);
+  static constexpr int SP = mr::f32_stride(LP);
+  // Phase A warps (16 rows each): as many as fit with f32 K and V and one
+  // copy stage; then, where they fit, K pre-split (it feeds two of phase
+  // A's three products), V pre-split, a second stage.
+  static constexpr int kWarpsA = bwd_f32_bytes(LP, CP, 2, 8, 1) <= kMaxSmem   ? 8
+                                 : bwd_f32_bytes(LP, CP, 2, 4, 1) <= kMaxSmem ? 4
+                                                                              : 2;
+  static constexpr bool kPreK = bwd_f32_bytes(LP, CP, 3, kWarpsA, 1) <= kMaxSmem;
+  static constexpr bool kPreV = bwd_f32_bytes(LP, CP, 4, kWarpsA, 1) <= kMaxSmem;
+  static constexpr int kArrays = 2 + kPreK + kPreV;
+  static constexpr int kStages = bwd_f32_bytes(LP, CP, kArrays, kWarpsA, 2) <= kMaxSmem ? 2 : 1;
+  static constexpr size_t kSmem = bwd_f32_bytes(LP, CP, kArrays, kWarpsA, kStages);
+  static constexpr int kStep = kTcRows * kWarpsA;
+  // Phase B: 4 warps for each of dK and dV, over 16 x 8 output tiles: kNW
+  // warps along the channels (kNPer n-tiles each), kMW along the slots
+  // (kMPer m-tiles each).
+  static constexpr int kMT = LP / 16, kNT = CP / 8;
+  static constexpr int kNW = kNT < 4 ? kNT : 4;
+  static constexpr int kMW = 4 / kNW;
+  static constexpr int kNPer = kNT / kNW;
+  static constexpr int kMPer = (kMT + kMW - 1) / kMW;
+};
+
+template <int LP, int CP>
+__global__ void __launch_bounds__(kTcWarps * 32)
+memory_read_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const uint8_t* __restrict__ pad,
+                           const float* __restrict__ dout, float* __restrict__ dq,
+                           float* __restrict__ work, int batch, int hw, int L, int C, int tile) {
+  using P = BwdF32<LP, CP>;
+  constexpr int S = P::S, SP = P::SP, kStages = P::kStages, kStep = P::kStep;
+  constexpr int kArrK = P::kPreK ? 2 : 1;  // arrays K takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_raw);
+  const mr::SplitTile<P::kPreK> ks{base, base + LP * S};
+  const mr::SplitTile<P::kPreV> vs{base + kArrK * LP * S, base + (kArrK + 1) * LP * S};
+  float* qs = base + P::kArrays * LP * S;     // [kStages][kStep][S]
+  float* gs = qs + kStages * kStep * S;       // [kStages][kStep][S]
+  float* ps = gs + kStages * kStep * S;       // [kStep][SP]
+  float* ds = ps + kStep * SP;                // [kStep][SP]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * kTcRows;  // this warp's rows of a step (phase A)
+  const bool in_a = warp < P::kWarpsA;
+  const int b = blockIdx.y;
+  const size_t q_off = (size_t)b * hw * C;
+  const int tile0 = blockIdx.x * tile;
+  const int tile_end = min(hw, tile0 + tile);
+  const int n_steps = (tile_end - tile0 + kStep - 1) / kStep;
+
+  auto load_step = [&](int step, int buf) {
+    const int row = tile0 + step * kStep + r0;
+    mr::load_rows_f32_async<CP>(qs + (buf * kStep + r0) * S, q + q_off, row, kTcRows, tile_end,
+                                C, lane, 32);
+    mr::load_rows_f32_async<CP>(gs + (buf * kStep + r0) * S, dout + q_off, row, kTcRows,
+                                tile_end, C, lane, 32);
+  };
+
+  // K, V and the first step's rows, all in flight at once; K and V are
+  // split in place (where pre-split) once they have landed.
+  mr::stage_f32_async<LP, CP>(ks, k + (size_t)b * L * C, L, C);
+  mr::stage_f32_async<LP, CP>(vs, v + (size_t)b * L * C, L, C);
+  if (in_a) load_step(0, 0);
+  mr::cp_async_commit();
+  uint32_t excluded, padded;
+  mr::slot_masks<LP>(pad == nullptr ? nullptr : pad + (size_t)b * L, L, lane, excluded, padded);
+
+  // Phase B's output tiles: dK (warps 0-3) or dV (warps 4-7).
+  const int which = warp >> 2;
+  const int mw = (warp & 3) / P::kNW, nw = (warp & 3) % P::kNW;
+  float acc[P::kMPer][P::kNPer][4];
+#pragma unroll
+  for (int mi = 0; mi < P::kMPer; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < P::kNPer; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+  mr::cp_async_wait<0>();
+  __syncthreads();
+  mr::split_staged<LP, CP>(ks);
+  mr::split_staged<LP, CP>(vs);
+  __syncthreads();
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int base_px = tile0 + step * kStep;
+    const int buf = kStages == 2 ? (step & 1) : 0;
+    if (kStages == 2) {
+      if (in_a && step + 1 < n_steps) load_step(step + 1, (step + 1) & 1);
+      mr::cp_async_commit();
+      mr::cp_async_wait<1>();
+    } else {
+      if (in_a && step > 0) load_step(step, 0);
+      mr::cp_async_commit();
+      mr::cp_async_wait<0>();
+    }
+    __syncwarp();
+
+    // ---- Phase A: this warp's 16 pixels (rows past the tile are zero;
+    // a warp whose rows all lie past it is not read in phase B). ----
+    if (in_a && base_px + r0 < tile_end) {
+      const float* qt = qs + (buf * kStep + r0) * S;
+      const float* gt = gs + (buf * kStep + r0) * S;
+      float sc[LP / 8][4], dp[LP / 8][4];
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < CP / 8; ++kc) {
+        uint32_t qh[4], ql[4], gh[4], gl[4];
+        mr::load_a_f32(qt, S, 0, kc * 8, lane, qh, ql);
+        mr::load_a_f32(gt, S, 0, kc * 8, lane, gh, gl);
+#pragma unroll
+        for (int j = 0; j < LP / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          const int row = (8 * j + g) * S + kc * 8 + t;
+          ks.get_b(row, row + 4, bh, bl);
+          mr::mma_3xtf32(sc[j], qh, ql, bh, bl);
+          vs.get_b(row, row + 4, bh, bl);
+          mr::mma_3xtf32(dp[j], gh, gl, bh, bl);
+        }
+      }
+      mr::softmax_rows<LP>(sc, excluded, padded);
+
+      // ds = P (dP - rowsum(P dP)) in f32, 0 at padding and past L.
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rs[i >> 1] = fmaf(sc[j][i], dp[j][i], rs[i >> 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      }
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t bit = 1u << (2 * j + (i & 1));
+          dp[j][i] = ((excluded | padded) & bit) ? 0.f : sc[j][i] * (dp[j][i] - rs[i >> 1]);
+        }
+
+      // P and ds to shared memory for phase B.
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(ps + (r0 + g) * SP + col) = make_float2(sc[j][0], sc[j][1]);
+        *reinterpret_cast<float2*>(ps + (r0 + g + 8) * SP + col) = make_float2(sc[j][2], sc[j][3]);
+        *reinterpret_cast<float2*>(ds + (r0 + g) * SP + col) = make_float2(dp[j][0], dp[j][1]);
+        *reinterpret_cast<float2*>(ds + (r0 + g + 8) * SP + col) = make_float2(dp[j][2], dp[j][3]);
+      }
+
+      // dQ = ds K, ds from registers under the permuted slot index.
+      float o[CP / 8][4];
+#pragma unroll
+      for (int j = 0; j < CP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < LP / 8; ++kk) {
+        uint32_t dh[4], dl[4];
+        mr::c_as_a(dp[kk], dh, dl);
+#pragma unroll
+        for (int n = 0; n < CP / 8; ++n) {
+          uint32_t bh[2], bl[2];
+          const int row = (8 * kk + 2 * t) * S + 8 * n + g;
+          ks.get_b(row, row + S, bh, bl);
+          mr::mma_3xtf32(o[n], dh, dl, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = base_px + r0 + g + 8 * h;
+        if (p < tile_end) {
+#pragma unroll
+          for (int n = 0; n < CP / 8; ++n) {
+            const int c = 8 * n + 2 * t;
+            if (c < C)
+              *reinterpret_cast<float2*>(dq + q_off + (size_t)p * C + c) =
+                  make_float2(o[n][2 * h], o[n][2 * h + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp's P and ds rows are in shared memory
+
+    // ---- Phase B: dK += ds^T Q, dV += P^T dO over the step's pixels,
+    // under the permuted pixel index (k = t is pixel 2t, k = t + 4 is
+    // 2t + 1).  Rows past the tile have zero q and dout, so they add
+    // nothing; k-steps wholly past it are skipped. ----
+    const int n_k = min(kStep / 8, (tile_end - base_px + 7) / 8);
+    const float* at = which == 0 ? ds : ps;
+    const float* bt = (which == 0 ? qs : gs) + buf * kStep * S;
+    for (int kk = 0; kk < n_k; ++kk) {
+      const int row = 8 * kk + 2 * t;
+      uint32_t ah[P::kMPer][4], al[P::kMPer][4];
+#pragma unroll
+      for (int mi = 0; mi < P::kMPer; ++mi) {
+        const int m0 = (mw * P::kMPer + mi) * 16;
+        if (m0 < LP) {
+          const float* a = at + row * SP + m0 + g;
+          const float x[4] = {a[0], a[8], a[SP], a[SP + 8]};
+          mr::split_tf32(x, ah[mi], al[mi]);
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < P::kNPer; ++ni) {
+        const float* bp = bt + row * S + (nw * P::kNPer + ni) * 8 + g;
+        uint32_t bh[2], bl[2];
+        mr::split_tf32(bp[0], bh[0], bl[0]);
+        mr::split_tf32(bp[S], bh[1], bl[1]);
+#pragma unroll
+        for (int mi = 0; mi < P::kMPer; ++mi)
+          if ((mw * P::kMPer + mi) * 16 < LP) mr::mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
+      }
+    }
+    __syncthreads();  // the next step rewrites P, ds and the rows
+  }
+
+  // This block's partial sums: work[0 or 1][b][tile index][s][c].
+  float* w = work + (((size_t)which * batch + b) * gridDim.x + blockIdx.x) * ((size_t)L * C);
+#pragma unroll
+  for (int mi = 0; mi < P::kMPer; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < P::kNPer; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = (mw * P::kMPer + mi) * 16 + g + 8 * h;
+        const int c = (nw * P::kNPer + ni) * 8 + 2 * t;
+        if (s < L && c < C)
+          *reinterpret_cast<float2*>(w + (size_t)s * C + c) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+}
+
+template <int LP, int CP>
+cudaError_t f32_launch(const void* q, const void* k, const void* v, const void* pad,
+                       const void* dout, void* dq, void* dk, void* dv, void* work, int batch,
+                       int hw, int L, int C, int tile, cudaStream_t stream) {
+  constexpr size_t smem = BwdF32<LP, CP>::kSmem;
+  static_assert(smem <= kMaxSmem, "shared memory of the f32 backward");
+  auto kernel = memory_read_bwd_f32_kernel<LP, CP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (hw + tile - 1) / tile;
+  kernel<<<dim3(n_tiles, batch), kTcWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(pad), static_cast<const float*>(dout), static_cast<float*>(dq),
+      static_cast<float*>(work), batch, hw, L, C, tile);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int LC = L * C;
+  memory_read_bwd_reduce<float><<<dim3((LC + kReduceThreads - 1) / kReduceThreads, batch, 2),
+                                  kReduceThreads, 0, stream>>>(
+      static_cast<const float*>(work), static_cast<float*>(dk), static_cast<float*>(dv), batch,
+      n_tiles, LC);
+  return cudaGetLastError();
+}
+
+template <int LP>
+cudaError_t f32_launch_c(const void* q, const void* k, const void* v, const void* pad,
+                         const void* dout, void* dq, void* dk, void* dv, void* work, int batch,
+                         int hw, int L, int C, int tile, cudaStream_t s) {
+  switch (mr::pick_channels(C)) {
+    case 16: return f32_launch<LP, 16>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 32: return f32_launch<LP, 32>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 64: return f32_launch<LP, 64>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 128: return f32_launch<LP, 128>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t f32_launch_l(const void* q, const void* k, const void* v, const void* pad,
+                         const void* dout, void* dq, void* dk, void* dv, void* work, int batch,
+                         int hw, int L, int C, int tile, cudaStream_t s) {
+  switch (mr::pick_slots(L)) {
+    case 16: return f32_launch_c<16>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 32: return f32_launch_c<32>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 64: return f32_launch_c<64>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 80: return f32_launch_c<80>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+    case 128: return f32_launch_c<128>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, dout, dq: [batch, hw, C]; k, v, dk, dv: [batch, L, C], all contiguous,
-// f32 (is_bf16 = 0) or bf16 (is_bf16 = 1; every pointer 16-byte aligned).
-// pad: [batch, L] bytes, nonzero at a padding slot, or null.  work: f32
-// [2, batch, ceil(hw / tile), L, C].  tile: pixels per block, a multiple of
-// 32 in 32..65536.  Needs 1 <= L <= 128, 4 <= C <= 128 with C % 4 == 0,
+// f32 (is_bf16 = 0; every pointer 4-byte aligned) or bf16 (is_bf16 = 1;
+// every pointer 16-byte aligned).  pad: [batch, L] bytes, nonzero at a
+// padding slot, or null.  work: f32 [2, batch, ceil(hw / tile), L, C].
+// tile: pixels per block, a multiple of 128 in 128..65536.  Needs 1 <= L <= 128, 4 <= C <= 128 with C % 4 == 0,
 // batch <= 65535.
 extern "C" int t2igan_memory_read_bwd(const void* q, const void* k, const void* v,
                                       const void* pad, const void* dout, void* dq, void* dk,
                                       void* dv, void* work, int batch, int hw, int L, int C,
                                       int tile, int is_bf16, void* stream) {
   if (batch < 1 || batch > 65535 || hw < 1 || L < 1 || L > 128 || C < 4 || C > 128 ||
-      C % 4 != 0 || tile < kSub || tile > (1 << 16) || tile % kSub != 0)
+      C % 4 != 0 || tile < kTcStep || tile > (1 << 16) || tile % kTcStep != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)tc_launch_l(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
-  return (int)launch_ns<float>(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
+  return (int)f32_launch_l(q, k, v, pad, dout, dq, dk, dv, work, batch, hw, L, C, tile, s);
 }

@@ -1,7 +1,8 @@
 // Helpers shared by the bf16 memory-read kernels (memory_read.cu, forward;
 // memory_read_bwd.cu, backward): asynchronous copies, ldmatrix, the
 // m16n8k16 bf16 tensor-core product and the fragment maps that tie them
-// together, for sm_80 and later (built for sm_90a).
+// together, for sm_80 and later (built for sm_90a).  The f32 kernels
+// (mma_tf32.cuh) share the copies, the slot masks and the softmax.
 //
 // Fragment maps of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major) a[0]: (g, 2t..2t+1)   a[1]: (g+8, 2t..2t+1)

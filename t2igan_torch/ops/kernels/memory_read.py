@@ -7,9 +7,11 @@ Port of ``t2igan/ops/pallas/memory_read.py::memory_read_fused`` and its
 hand-written kernel in ``t2igan_torch/csrc/memory_read.cu`` and
 :func:`memory_read_bwd` the one in ``csrc/memory_read_bwd.cu``, or they
 raise; on a CPU tensor they run :func:`memory_read_plain` and
-:func:`memory_read_bwd_plain`.  Neither falls back.  In bf16 both kernels
-run on the tensor cores and round the attention (and the backward's ds)
-to bf16 before the products that take it; in f32 they round nothing.
+:func:`memory_read_bwd_plain`.  Neither falls back.  Both dtypes run on
+the tensor cores.  In bf16 the kernels round the attention (and the
+backward's ds) to bf16 before the products that take it; in f32 every
+product is 3xTF32 (each operand split into two TF32 parts, three
+products summed in f32), and nothing is rounded below f32.
 """
 
 from __future__ import annotations
@@ -29,18 +31,19 @@ KERNEL = "memory_read_fwd"
 BWD_KERNEL = "memory_read_bwd"
 # The wrappers pick the pixels per block (a multiple of the kernel's step,
 # at most a cap) so that about a target number of blocks share the work:
-# two per SM of an H100 (264) for the bf16 forward and the f32 backward;
-# one per SM (132) for the bf16 backward, of which one block of 8 warps
-# fills an SM (over 128 registers a thread, 139 KB of shared memory).
-# The bf16 kernels step 128 pixels at a time (8 warps of 16 rows); the
-# f32 backward 32.  The caps and targets were the fastest of the pixel
-# runs timed on the H100 (PERF.md).
+# two per SM of an H100 (264) for the bf16 forward; one per SM (132) for
+# the others, of which one block fills an SM (the bf16 backward: over 128
+# registers a thread, 139 KB of shared memory; the f32 kernels: 221 KB
+# forward, 216 KB backward at L = 77, C = 64).  The steps: 128 pixels (8
+# warps of 16 rows), 256 for the f32 forward (16 warps where L + C is
+# small).  The caps and targets were the fastest of the pixel runs timed
+# on the H100 (PERF.md).
 TC_STEP = 128
-BWD_SUB_TILE = 32
-MAX_TILE = 1024
-TC_BWD_MAX_TILE = 4096
-TARGET_BLOCKS = 264
-TC_BWD_BLOCKS = 132
+F32_FWD_STEP = 256
+BF16_FWD_MAX_TILE = 1024
+BF16_FWD_BLOCKS = 264
+MAX_TILE = 4096
+SM_BLOCKS = 132
 # Unit roundoffs: a bf16 or f32 rounding moves a value by at most this
 # times its magnitude.
 BF16_UNIT = 2.0 ** -8
@@ -202,7 +205,7 @@ def bwd_bf16_bound(query_map: torch.Tensor, key: torch.Tensor,
     """
     b, h, w, c = query_map.shape
     slots, hw = key.shape[1], h * w
-    tile = bwd_tile(b, hw, bf16=True)
+    tile = bwd_tile(b, hw)
     depth = tile // 16 + -(-hw // tile) + 16
     exact, sums, s_abs = grads_f64(query_map, key, value, pad_mask, dout)
     eps_p = (2 * (c + slots) * s_abs + slots + 16) * F32_UNIT
@@ -219,6 +222,30 @@ def bwd_bf16_bound(query_map: torch.Tensor, key: torch.Tensor,
     return tuple(bounds)
 
 
+def fwd_f32_bound(channels: int) -> float:
+    """How far K1 in f32 may be from :func:`memory_read_plain`: ``3e-6 C``,
+    for C-term f32 dot products of unit normals (logits of size ~sqrt(C))
+    summed in another order than the plain version sums them.  K1 takes
+    each product as 3xTF32, whose terms are off by ~3 * 2^-22 of their
+    magnitude, about as much as the f32 sums themselves."""
+    return 3e-6 * channels
+
+
+def bwd_f32_bounds(query_map: torch.Tensor, key: torch.Tensor,
+                   value: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                   dout: torch.Tensor) -> Tuple[float, float, float]:
+    """How far K2's (dq, dk, dv) in f32 may be from
+    :func:`memory_read_bwd_plain`: a recursive f32 sum of n terms is off by
+    at most ``n 2^-24`` times the sum of the terms' magnitudes (``T``, from
+    :func:`grads_f64`); n is L for dq and HW for dk and dv, plus the C- and
+    L-term sums inside each term: ``(n + C + L) 2^-24 T``."""
+    h, w = query_map.shape[1:3]
+    slots, c = key.shape[1:]
+    sums = grads_f64(query_map, key, value, pad_mask, dout)[1]
+    return tuple((n + c + slots) * F32_UNIT * a.max().item()
+                 for n, a in zip((slots, h * w, h * w), sums))
+
+
 def check_kernel_args(query_map: torch.Tensor, key: torch.Tensor,
                       value: torch.Tensor,
                       pad_mask: Optional[torch.Tensor],
@@ -226,7 +253,8 @@ def check_kernel_args(query_map: torch.Tensor, key: torch.Tensor,
     """Raise ``ValueError`` on anything the kernels do not take: dtypes
     other than f32/bf16, mismatched shapes or dtypes, non-contiguous
     tensors, bf16 tensors that do not start on a 16-byte boundary (the bf16
-    kernels copy rows with 16- and 8-byte loads), L outside [1, 128], C
+    kernels copy rows with 16- and 8-byte loads; the f32 kernels copy 16, 8
+    or 4 bytes at a time, as a tensor's start allows), L outside [1, 128], C
     outside [4, 128] or not a multiple of 4, more than 65535 batch rows.
     ``dout`` (the backward's incoming gradient) must match ``query_map`` in
     shape and dtype."""
@@ -310,7 +338,8 @@ def memory_read_fused(query_map: torch.Tensor, key: torch.Tensor,
         err = fn(query_map.data_ptr(), key.data_ptr(), value.data_ptr(),
                  None if pad_mask is None else pad_mask.data_ptr(),
                  out.data_ptr(), b, h * w, key.shape[1], c,
-                 fwd_tile(b, h * w), int(query_map.dtype == torch.bfloat16),
+                 fwd_tile(b, h * w, query_map.dtype == torch.bfloat16),
+                 int(query_map.dtype == torch.bfloat16),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"memory_read kernel launch failed with CUDA "
@@ -326,22 +355,22 @@ def _pixel_run(batch: int, hw: int, step: int, blocks: int,
     return max(step, min(cap, tile))
 
 
-def fwd_tile(batch: int, hw: int) -> int:
-    """Pixels per block of the bf16 forward kernel: a multiple of its
-    128-pixel step, at most 1024, chosen so that about ``TARGET_BLOCKS``
-    blocks cover ``batch * hw`` pixels (the f32 kernel takes 256 a block
-    whatever it is given)."""
-    return _pixel_run(batch, hw, TC_STEP, TARGET_BLOCKS, MAX_TILE)
-
-
-def bwd_tile(batch: int, hw: int, bf16: bool = False) -> int:
-    """Pixels per block of the backward kernel.  f32: a multiple of the
-    32-pixel sub-tile, at most 1024, so that about ``TARGET_BLOCKS`` blocks
-    cover ``batch * hw`` pixels.  bf16: a multiple of the 128-pixel step,
-    at most 4096, so that about ``TC_BWD_BLOCKS`` blocks do."""
+def fwd_tile(batch: int, hw: int, bf16: bool = True) -> int:
+    """Pixels per block of the forward kernel: in bf16 a multiple of its
+    128-pixel step, at most 1024, so that about ``BF16_FWD_BLOCKS`` blocks
+    cover ``batch * hw`` pixels; in f32 a multiple of its 256-pixel step,
+    at most 4096, so that about ``SM_BLOCKS`` blocks do."""
     if bf16:
-        return _pixel_run(batch, hw, TC_STEP, TC_BWD_BLOCKS, TC_BWD_MAX_TILE)
-    return _pixel_run(batch, hw, BWD_SUB_TILE, TARGET_BLOCKS, MAX_TILE)
+        return _pixel_run(batch, hw, TC_STEP, BF16_FWD_BLOCKS,
+                          BF16_FWD_MAX_TILE)
+    return _pixel_run(batch, hw, F32_FWD_STEP, SM_BLOCKS, MAX_TILE)
+
+
+def bwd_tile(batch: int, hw: int) -> int:
+    """Pixels per block of the backward kernel, f32 and bf16: a multiple of
+    its 128-pixel step, at most 4096, so that about ``SM_BLOCKS`` blocks
+    cover ``batch * hw`` pixels."""
+    return _pixel_run(batch, hw, TC_STEP, SM_BLOCKS, MAX_TILE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -380,7 +409,7 @@ def memory_read_bwd(query_map: torch.Tensor, key: torch.Tensor,
     check_kernel_args(query_map, k, v, pad_mask, g)
     b, h, w, c = query_map.shape
     slots, hw = k.shape[1], h * w
-    tile = bwd_tile(b, hw, query_map.dtype == torch.bfloat16)
+    tile = bwd_tile(b, hw)
     n_tiles = -(-hw // tile)
     fn = _bwd_entry()
     with torch.cuda.device(query_map.device):

@@ -101,9 +101,12 @@ def test_memory_read_plain_keeps_model_dtype(rng):
     (dict(noncontig=True), "contiguous"),
     (dict(mask_dtype=torch.int32), "pad_mask"),
     (dict(dtype=torch.bfloat16, misaligned=True), "16-byte"),
+    (dict(misaligned=True), None),
 ])
 def test_kernel_argument_checks(bad, match):
-    """What the CUDA kernel does not take is refused before any launch."""
+    """What the CUDA kernel does not take is refused before any launch;
+    an f32 view 4 bytes past a 16-byte boundary is taken (``match``
+    None): the f32 kernels copy 16, 8 or 4 bytes as its start allows."""
     b, l, c = 2, bad.get("l", 7), bad.get("c", 8)
     dtype = bad.get("dtype", torch.float32)
     q = torch.zeros(b, 4, 4, c, dtype=dtype)
@@ -113,6 +116,10 @@ def test_kernel_argument_checks(bad, match):
         q = torch.zeros(b * 4 * 4 * c + 1, dtype=dtype)[1:].view(b, 4, 4, c)
     k = torch.zeros(b, l, c, dtype=dtype)
     pad = torch.zeros(b, l, dtype=bad.get("mask_dtype", torch.bool))
+    if match is None:
+        assert q.data_ptr() % 16 == 4
+        check_kernel_args(q, k, k, pad, q)
+        return
     with pytest.raises(ValueError, match=match):
         check_kernel_args(q, k, k, pad)
 

@@ -168,8 +168,9 @@ def test_kernel_argument_checks_for_dout(bad, match):
 
 
 @pytest.mark.parametrize("batch, hw, tile", [
-    (16, 128 * 128, 1024), (16, 64 * 64, 256), (4, 64 * 64, 64),
-    (4, 128 * 128, 256), (1, 5, 32), (2, 300000, 1024)])
+    (16, 128 * 128, 2048), (16, 64 * 64, 512), (4, 64 * 64, 128),
+    (4, 128 * 128, 512), (1, 5, 128), (2, 300000, 4096)])
 def test_bwd_tile(batch, hw, tile):
-    """Pixels per block: a multiple of 32 in [32, 1024], ~264 blocks."""
+    """Pixels per block of the backward, f32 and bf16: a multiple of the
+    128-pixel step in [128, 4096], ~132 blocks (one per SM)."""
     assert bwd_tile(batch, hw) == tile

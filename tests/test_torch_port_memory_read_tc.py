@@ -117,7 +117,7 @@ def emulate_bwd(q, k, v, pad, dout, fault=None):
     dq = (ds @ kf)[..., :c].reshape(b, h, w, c)
     if fault == "phase_b_step_dropped":
         keep = torch.ones(h * w, 1)
-        for start in range(0, h * w, bwd_tile(b, h * w, bf16=True)):
+        for start in range(0, h * w, bwd_tile(b, h * w)):
             keep[start:start + 16] = 0
         ds, p = ds * keep, p * keep
     dk = (ds.transpose(1, 2) @ qf)[:, :slots, :c]
@@ -281,12 +281,13 @@ def test_fwd_tile(batch, hw, tile):
 def test_bwd_tile_bf16(batch, hw, tile):
     """Pixels per block of the bf16 backward: a multiple of its 128-pixel
     step in [128, 4096], ~132 blocks (one per SM)."""
-    assert bwd_tile(batch, hw, bf16=True) == tile
+    assert bwd_tile(batch, hw) == tile
 
 
 def test_alignment_rule_is_bf16_only():
     """The bf16 kernels copy 16- and 8-byte chunks, so a bf16 tensor must
-    start on a 16-byte boundary; the f32 kernels take any f32 pointer."""
+    start on a 16-byte boundary; the f32 kernels take any f32 pointer
+    (16-, 8- or 4-byte copies as its start allows)."""
     k = torch.zeros(2, 7, 8)
     q = torch.zeros(2 * 4 * 4 * 8 + 1)[1:].view(2, 4, 4, 8)
     check_kernel_args(q, k, k, None)
