@@ -1,6 +1,7 @@
 // Helpers shared by the f32 memory-read kernels (memory_read.cu, forward;
-// memory_read_bwd.cu, backward): f32 products on the TF32 tensor cores at
-// f32 accuracy ("3xTF32"), for sm_80 and later (built for sm_90a).
+// memory_read_bwd.cu, backward) and the f32 fused tail (reschain.cu): f32
+// products on the TF32 tensor cores at f32 accuracy ("3xTF32"), for sm_80
+// and later (built for sm_90a).
 //
 // 3xTF32.  Every f32 operand x is split into hi = tf32_rna(x) and
 // lo = tf32_rna(x - hi) (10 mantissa bits, ties away from zero, as

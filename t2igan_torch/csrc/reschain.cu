@@ -17,10 +17,14 @@
 // input and the pre-GLU maps never exist in memory.
 //
 // What bounds it: at the sampler's shapes (batch 128, C = 128, R = 2, H = W
-// = 64 and 128) the two calls do 6.04 TFLOP and move ~1 GB at their edges,
-// ~6000 flops per byte, far above the H100's ~295 bf16 flops per byte: the
-// convs are bound by the tensor cores (6.1 ms at 989 TFLOP/s).  The RGB
-// head alone is bound by bytes (it reads the 1.07 GB `up` map at 256^2).
+// = 64 and 128) the two calls do 6.04 TFLOP and move ~1 GB at their edges
+// in bf16 (~2 GB in f32), ~6000 (~3000) flops per byte, far above the
+// H100's ~295 bf16 (~150 TF32) flops per byte: the convs are bound by the
+// tensor cores.  bf16 takes 6.1 ms at 989 TFLOP/s.  f32 is held to f32
+// accuracy, so each product runs as three TF32 products (3xTF32): 18.1
+// TFLOP at 495 TFLOP/s, 36.6 ms, where the same work on the CUDA cores'
+// 67 TFLOP/s takes 90 ms.  The RGB head alone is bound by bytes (it reads
+// the `up` map at 256^2: 1.07 GB in bf16, 2.15 GB in f32).
 //
 // bf16, on Hopper (conv_tc, rgb_head_tc):
 //  * Each conv is an implicit GEMM on wgmma (m64nNk16, f32 accumulators).
@@ -61,10 +65,41 @@
 //    the 3 output channels in an 8-column tile, and writes 6-byte pixels as
 //    16-byte stores where a tile row allows.
 //
-// f32 (the dtype of the card check) stays on the CUDA cores (reschain_conv):
-// 128 pixels x 64 GEMM columns a block, K staged in shared memory with
-// 16-byte loads, the value half and the gate half of the same channels in
-// one block (the wrapper's f32 layout is the plain [Cout][taps x Cin]).
+// f32 (every entry point's default dtype; conv_tf32, rgb_head_tf32) runs
+// the bf16 design on the TF32 tensor cores as 3xTF32 (mma_tf32.cuh): each
+// f32 x is split into hi = tf32_rna(x) and lo = tf32_rna(x - hi), and each
+// K step of 8 takes a_lo b_hi + a_hi b_lo + a_hi b_hi into one f32
+// accumulator, small terms first, so every conv is summed in f32 at f32
+// accuracy and the chain rounds where the Pallas kernel does.
+//  * wgmma m64nNk8 .tf32: B (the weights) from shared memory, split once
+//    on the host into TF32 hi and lo tensors (lay_out_operands), both
+//    multicast through the ring; A (the input tile) from registers, split
+//    as it is read.  The tiles, N, the producer warp, the consumer
+//    warpgroups, the clusters and the persistent grid are bf16's; K
+//    slices are 16 channels (64-byte rows, the 64-byte swizzle), so a
+//    stage of hi, lo and the input tile fits 5 (C -> 2C) or 7 times.
+//  * Each thread reads its A fragment of a slice as one 16-byte load a
+//    row (channels 4t .. 4t + 3, free of bank conflicts under the 64-byte
+//    swizzle): k = t of the slice's first k8 step is channel 4t, k = t + 4
+//    is 4t + 1, and so on, and the wrapper orders the weights' input
+//    channels the same way (each 16 by the 4 x 4 transpose).  Products
+//    read the A registers asynchronously, so each slice waits for its
+//    products before the next rewrites them; the two consumer warpgroups
+//    keep the tensor cores fed in turn (a second register set, to keep a
+//    slice's products in flight, measured no faster).
+//  * The tensor cores add each product to the f32 accumulator rounding
+//    toward zero, three times a k8 step: the chain stands a few C 2^-24
+//    of its scale from float64 (plain f32 ~1e-6), inside the f32 bound
+//    (f32_tol, f32_f64_tol in ops/kernels/reschain.py).
+//  * Epilogues in registers as in bf16, in f32: the affine, GLU, the
+//    residual read and written by the same thread (in place; a thread
+//    issues the loads of four column tiles before their stores, which
+//    may alias them), and no staging tile: a thread's f32 pair is an
+//    8-byte store and four threads fill a 32-byte sector.
+//  * The RGB head (rgb_head_tf32): bf16's 8 x 32 tile and warps, the halo
+//    in slices of 16 channels by TMA, two in flight; each slice is split
+//    into hi (in place) and lo once, then the nine taps run 3xTF32 on
+//    mma.sync m16n8k8 with the 3 output channels in one n8 tile.
 //
 // Device memory traffic between the launches: y and h [B, H, W, C] between
 // the convs of each residual block, and `up` [B, 2H, 2W, C/2] between the
@@ -81,16 +116,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
 enum Mode { kGlu3x3 = 0, kResidual3x3 = 1, kUpPhase = 2, kRgb3x3 = 3 };
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-// The bf16 epilogues' sigmoid: approximate exp and reciprocal, one MUFU
-// op each (a few ulp in f32, far below the bf16 rounding that follows).
+// The epilogues' sigmoid: approximate exp and reciprocal, one MUFU op each.
+// A few ulp in f32: far below the bf16 rounding that follows, and in f32
+// below what the tensor cores' accumulation costs (the f32 checks read the
+// same errors with it as with an IEEE sigmoid, and the GLU kinds ran 5-8%
+// faster).
 __device__ __forceinline__ float fast_sigmoidf(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + __expf(-x)));
@@ -98,245 +138,7 @@ __device__ __forceinline__ float fast_sigmoidf(float x) {
 }
 
 // ===========================================================================
-// f32: CUDA cores
-// ===========================================================================
-
-struct ConvArgs {
-  const float* in;    // [B, H, W, Cin]
-  const float* wt;    // [phases][N][taps * Cin]
-  const float* aff;   // [2, N]: scale, shift (unused by the RGB head)
-  const float* res;   // [B, H, W, N] residual (kResidual3x3 only; may alias out)
-  float* out;         // see the epilogue
-  int batch, H, W, Cin, N;
-};
-
-// WM x WN warps; each warp TM x TN tiles of 16 pixels x 8 columns; thread
-// (g, t) of a warp owns rows g, g + 8 and columns 2t, 2t + 1 of each tile.
-template <int MODE, int WM, int WN, int TM, int TN>
-__global__ void __launch_bounds__(WM * WN * 32)
-reschain_conv(ConvArgs p) {
-  constexpr int kThreads = WM * WN * 32;
-  constexpr int BM = WM * TM * 16;                 // pixels per block
-  constexpr int NB = WN * TN * 8;                  // GEMM columns per block
-  constexpr bool kGlu = MODE == kGlu3x3 || MODE == kUpPhase;
-  constexpr int kVec = 4;                          // floats per 16-byte load
-  constexpr int BK = 32;                           // K slice (channels of one tap)
-  constexpr int LDS = BK + kVec;                   // padded row: no bank conflicts
-  constexpr int kVecPerRow = BK / kVec;
-  constexpr int kRowsPerPass = kThreads / kVecPerRow;
-  constexpr int kAPasses = BM / kRowsPerPass;
-  constexpr int kTaps = MODE == kUpPhase ? 4 : 9;
-  constexpr int kTapW = MODE == kUpPhase ? 2 : 3;
-  static_assert(!kGlu || TN % 2 == 0, "GLU pairs value and gate tiles");
-  static_assert(BM % kRowsPerPass == 0, "A tile rows per pass");
-
-  __shared__ __align__(16) float As[BM * LDS];
-  __shared__ __align__(16) float Bs[NB * LDS];
-
-  const float* __restrict__ in = p.in;
-  const int H = p.H, W = p.W, Cin = p.Cin, N = p.N;
-  const int K = kTaps * Cin;
-  const long long M = (long long)p.batch * H * W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int phase = blockIdx.z;                    // subpixel phase (kUpPhase)
-  const int pa = phase >> 1, pb = phase & 1;
-  const float* __restrict__ wt = p.wt + (size_t)phase * N * K;
-  const int half = kGlu ? N / 2 : N;               // channels out of the epilogue
-  const int n0 = blockIdx.y * (kGlu ? NB / 2 : NB);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp % WM, wn = warp / WM;
-  const int g = lane >> 2, t = lane & 3;
-
-  // Pixels of the A rows this thread stages (row = tid / kVecPerRow + pass).
-  const int cv = tid % kVecPerRow;
-  int pix_b[kAPasses], pix_y[kAPasses], pix_x[kAPasses];
-#pragma unroll
-  for (int j = 0; j < kAPasses; ++j) {
-    const long long m = m0 + tid / kVecPerRow + j * kRowsPerPass;
-    if (m < M) {
-      pix_b[j] = (int)(m / ((long long)H * W));
-      const int r = (int)(m - (long long)pix_b[j] * H * W);
-      pix_y[j] = r / W;
-      pix_x[j] = r - pix_y[j] * W;
-    } else {
-      pix_b[j] = -1; pix_y[j] = 0; pix_x[j] = 0;
-    }
-  }
-
-  // Shared-memory row of this warp's n8 tile j; GEMM column of B-tile row r.
-  auto tile_row = [&](int j) {
-    if (kGlu) {
-      constexpr int hn = TN / 2;
-      return j < hn ? (wn * hn + j) * 8 : NB / 2 + (wn * hn + j - hn) * 8;
-    }
-    return (wn * TN + j) * 8;
-  };
-  auto column = [&](int r, bool& valid) {
-    if (kGlu) {
-      const int c = n0 + (r < NB / 2 ? r : r - NB / 2);
-      valid = c < half;
-      return r < NB / 2 ? c : half + c;
-    }
-    valid = n0 + r < N;
-    return n0 + r;
-  };
-
-  float acc[TM][TN][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int tap = 0; tap < kTaps; ++tap) {
-    const int tu = tap / kTapW, tv = tap - tu * kTapW;
-    const int dy = MODE == kUpPhase ? pa + tu - 1 : tu - 1;
-    const int dx = MODE == kUpPhase ? pb + tv - 1 : tv - 1;
-    for (int c0 = 0; c0 < Cin; c0 += BK) {
-      const int c = c0 + cv * kVec;
-#pragma unroll
-      for (int j = 0; j < kAPasses; ++j) {
-        const int row = tid / kVecPerRow + j * kRowsPerPass;
-        const int yy = pix_y[j] + dy, xx = pix_x[j] + dx;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (pix_b[j] >= 0 && yy >= 0 && yy < H && xx >= 0 && xx < W && c < Cin)
-          v = *reinterpret_cast<const uint4*>(
-              in + (((size_t)pix_b[j] * H + yy) * W + xx) * Cin + c);
-        *reinterpret_cast<uint4*>(As + row * LDS + cv * kVec) = v;
-      }
-      for (int i = tid; i < NB * kVecPerRow; i += kThreads) {
-        const int r = i / kVecPerRow, cb = c0 + (i - r * kVecPerRow) * kVec;
-        bool valid;
-        const int n = column(r, valid);
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (valid && cb < Cin)
-          v = *reinterpret_cast<const uint4*>(wt + (size_t)n * K + (size_t)tap * Cin + cb);
-        *reinterpret_cast<uint4*>(Bs + r * LDS + (i - r * kVecPerRow) * kVec) = v;
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float av[TM][2], bv[TN][2];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = (wm * TM + i) * 16 + g;
-          av[i][0] = As[r * LDS + k];
-          av[i][1] = As[(r + 8) * LDS + k];
-        }
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int r = tile_row(j) + 2 * t;
-          bv[j][0] = Bs[r * LDS + k];
-          bv[j][1] = Bs[(r + 1) * LDS + k];
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc[i][j][0] = fmaf(av[i][0], bv[j][0], acc[i][j][0]);
-            acc[i][j][1] = fmaf(av[i][0], bv[j][1], acc[i][j][1]);
-            acc[i][j][2] = fmaf(av[i][1], bv[j][0], acc[i][j][2]);
-            acc[i][j][3] = fmaf(av[i][1], bv[j][1], acc[i][j][3]);
-          }
-      }
-      __syncthreads();
-    }
-  }
-
-  // Epilogue: element (row g + 8h, column 2t + e) of each tile.
-  float* out = p.out;
-  const float* res = p.res;
-  const float* scale = p.aff;
-  const float* shift = p.aff + N;
-  constexpr int kOutTiles = kGlu ? TN / 2 : TN;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long m = m0 + (wm * TM + i) * 16 + g + 8 * hh;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < kOutTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = tile_row(j) + 2 * t + e;
-          bool valid;
-          const int n = column(r, valid);
-          if (!valid) continue;
-          const float v = acc[i][j][2 * hh + e];
-          if constexpr (MODE == kGlu3x3 || MODE == kUpPhase) {
-            const float gate = acc[i][j + TN / 2][2 * hh + e];
-            const float o = (v * scale[n] + shift[n]) *
-                            sigmoidf(gate * scale[half + n] + shift[half + n]);
-            size_t idx = (size_t)m * half + n;
-            if (MODE == kUpPhase) {
-              const long long hw = (long long)H * W;
-              const long long bi = m / hw;
-              const int rr = (int)(m - bi * hw);
-              const int yy = rr / W, xx = rr - yy * W;
-              idx = (((size_t)bi * 2 * H + 2 * yy + pa) * 2 * W + 2 * xx + pb) * half + n;
-            }
-            out[idx] = o;
-          } else if constexpr (MODE == kResidual3x3) {
-            const size_t idx = (size_t)m * N + n;
-            out[idx] = res[idx] + v * scale[n] + shift[n];
-          } else {
-            out[(size_t)m * N + n] = tanhf(v);
-          }
-        }
-    }
-}
-
-template <int MODE, int WM, int WN, int TM, int TN>
-cudaError_t launch(const ConvArgs& a, int gemm_cols, int phases, cudaStream_t stream) {
-  constexpr int BM = WM * TM * 16;
-  constexpr int NB = WN * TN * 8;
-  constexpr bool kGlu = MODE == kGlu3x3 || MODE == kUpPhase;
-  const long long M = (long long)a.batch * a.H * a.W;
-  const int per_block = kGlu ? NB / 2 : NB;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (gemm_cols + per_block - 1) / per_block,
-                  phases);
-  reschain_conv<MODE, WM, WN, TM, TN><<<grid, WM * WN * 32, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t run_f32(const float* x, int n_res, const void* const* w1, const void* const* a1,
-                    const void* const* w2, const void* const* a2, const void* w_up,
-                    const void* a_up, const void* w_rgb, void* up_out, void* rgb_out,
-                    void* scratch_y, void* scratch_h, int B, int H, int W, int C,
-                    cudaStream_t s) {
-  cudaError_t err;
-  auto f = [](const void* q) { return static_cast<const float*>(q); };
-  float* y = static_cast<float*>(scratch_y);
-  float* hs = static_cast<float*>(scratch_h);
-  const float* h = x;
-  for (int r = 0; r < n_res; ++r) {
-    // y = GLU(conv(h, k1) * s1 + b1): GEMM N = 2C, C channels out.
-    ConvArgs c1{h, f(w1[r]), f(a1[r]), nullptr, y, B, H, W, C, 2 * C};
-    if ((err = launch<kGlu3x3, 4, 2, 2, 4>(c1, C, 1, s)) != cudaSuccess) return err;
-    // h = h + conv(y, k2) * s2 + b2, written to scratch_h (in place after
-    // the first block: each element's residual is read by the thread
-    // that overwrites it).
-    ConvArgs c2{y, f(w2[r]), f(a2[r]), h, hs, B, H, W, C, C};
-    if ((err = launch<kResidual3x3, 4, 2, 2, 4>(c2, C, 1, s)) != cudaSuccess) return err;
-    h = hs;
-  }
-  // up = GLU(conv(nearest2x(h), k_up) * s + b) as four subpixel phases.
-  ConvArgs cu{h, f(w_up), f(a_up), nullptr, static_cast<float*>(up_out), B, H, W, C, C};
-  if ((err = launch<kUpPhase, 4, 2, 2, 4>(cu, C / 2, 4, s)) != cudaSuccess) return err;
-  if (w_rgb != nullptr) {
-    ConvArgs cr{static_cast<const float*>(up_out), f(w_rgb), nullptr, nullptr,
-                static_cast<float*>(rgb_out), B, 2 * H, 2 * W, C / 2, 3};
-    if ((err = launch<kRgb3x3, 8, 1, 2, 1>(cr, 3, 1, s)) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-// ===========================================================================
-// bf16: wgmma + TMA
+// What both dtypes share: the persistent grid, clusters, tiles
 // ===========================================================================
 
 using bf16 = __nv_bfloat16;
@@ -347,10 +149,12 @@ constexpr int kSmemMax = 232448;         // shared memory a block can have
 constexpr int kCluster = 2;              // blocks sharing each weight tile by multicast
 constexpr int kAffinePad = 256;          // affine rows are zero-padded to this many columns
 
+// T: the storage type, bf16 or float.
+template <typename T>
 struct TcArgs {
   const float* aff;   // [2][n_tiles * BN]: scale row, shift row, GEMM column order, zero-padded
-  const bf16* res;    // kResidual3x3: [B, H, W, c_out], may alias out
-  bf16* out;          // [B, H, W, c_out]; kUpPhase: [B, 2H, 2W, c_out]
+  const T* res;       // kResidual3x3: [B, H, W, c_out], may alias out
+  T* out;             // [B, H, W, c_out]; kUpPhase: [B, 2H, 2W, c_out]
   int H, W;           // the input's grid
   int cin, n_gemm, c_out;
   int rows, cols;     // the pixel patch of a tile: rows x cols = kBM
@@ -358,6 +162,38 @@ struct TcArgs {
   int m_groups, total;  // pixel patches of a cluster (one a block), groups in all
   int aff_stride;      // n_gemm rounded up to kAffinePad
 };
+
+struct Tile {
+  int b, y0, x0, n0, phase;
+  bool valid;  // false: the second patch of a pair past the last one (zeros in, no stores)
+};
+
+// Group t of a cluster: pixel patch groups fastest, then N tiles, then
+// subpixel phases; the block of cluster rank r takes patch kCluster
+// (t % m_groups) + r.  The blocks of a group share the weight tile (n0,
+// phase).
+template <typename T>
+__device__ __forceinline__ Tile decode(const TcArgs<T>& p, int t, uint32_t rank, int bn) {
+  Tile r;
+  const int mt = kCluster * (t % p.m_groups) + (int)rank, rest = t / p.m_groups;
+  r.valid = mt < p.m_tiles;
+  r.n0 = (rest % p.n_tiles) * bn;
+  r.phase = rest / p.n_tiles;
+  const int per_img = p.tiles_y * p.tiles_x;
+  r.b = mt / per_img;
+  const int s = mt - r.b * per_img;
+  r.y0 = (s / p.tiles_x) * p.rows;
+  r.x0 = (s - (s / p.tiles_x) * p.tiles_x) * p.cols;
+  return r;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (tc::smem_u32(p) & 1023)) & 1023);
+}
+
+// ===========================================================================
+// bf16: wgmma + TMA
+// ===========================================================================
 
 // A tile: BM = 128 MW output pixels x BN GEMM columns; consumer warpgroup
 // wg owns pixels 64 MW wg .. 64 MW (wg + 1) - 1, as MW wgmma row blocks of
@@ -380,33 +216,6 @@ struct TcShape {
   static_assert(kStages >= 4 && kSmem <= kSmemMax, "shared memory of one block");
 };
 
-struct Tile {
-  int b, y0, x0, n0, phase;
-  bool valid;  // false: the second patch of a pair past the last one (zeros in, no stores)
-};
-
-// Group t of a cluster: pixel patch groups fastest, then N tiles, then
-// subpixel phases; the block of cluster rank r takes patch kCluster
-// (t % m_groups) + r.  The blocks of a group share the weight tile (n0,
-// phase).
-__device__ __forceinline__ Tile decode(const TcArgs& p, int t, uint32_t rank, int bn) {
-  Tile r;
-  const int mt = kCluster * (t % p.m_groups) + (int)rank, rest = t / p.m_groups;
-  r.valid = mt < p.m_tiles;
-  r.n0 = (rest % p.n_tiles) * bn;
-  r.phase = rest / p.n_tiles;
-  const int per_img = p.tiles_y * p.tiles_x;
-  r.b = mt / per_img;
-  const int s = mt - r.b * per_img;
-  r.y0 = (s / p.tiles_x) * p.rows;
-  r.x0 = (s - (s / p.tiles_x) * p.tiles_x) * p.cols;
-  return r;
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (tc::smem_u32(p) & 1023)) & 1023);
-}
-
 // Stores the bf16 pair (lo, hi) of channels 8 * chunk + 2 * t4 (+1) of
 // staged pixel row r; chunks are XOR-swizzled by r % 8 (no bank conflicts).
 __device__ __forceinline__ void stage_pair(uint8_t* stg, int row_bytes, int r, int chunk, int t4,
@@ -418,7 +227,7 @@ __device__ __forceinline__ void stage_pair(uint8_t* stg, int row_bytes, int r, i
 template <int MODE, int BN, int MW, int BK>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 conv_tc(const __grid_constant__ CUtensorMap in_map, const __grid_constant__ CUtensorMap wt_map,
-        const TcArgs p) {
+        const TcArgs<bf16> p) {
   using S = TcShape<MODE, BN, MW, BK>;
   constexpr int kABytes = S::kABytes;
   constexpr int kTaps = MODE == kUpPhase ? 4 : 9;
@@ -734,6 +543,396 @@ rgb_head_tc(const __grid_constant__ CUtensorMap up_map, const HeadArgs p) {
   }
 }
 
+// ===========================================================================
+// f32: 3xTF32 on wgmma + TMA
+// ===========================================================================
+
+// The bf16 tiles (BM = 128 MW output pixels x BN GEMM columns, consumer
+// warpgroup wg on rows 64 MW wg ..) with K slices of 16 channels: 64-byte
+// rows under the 64-byte swizzle.  A stage holds the input tile and the
+// weight tile's TF32 hi and lo parts.  No staging tile: a thread's f32 pair
+// of one pixel is a whole 8-byte store, four threads fill a 32-byte sector.
+template <int MODE, int BN, int MW>
+struct Tf32Shape {
+  static constexpr bool kGlu = MODE != kResidual3x3;
+  static constexpr int kBK = 16;                     // channels of a K slice
+  static constexpr int kRow = kBK * 4;               // bytes of a tile row
+  static constexpr int kBM = 128 * MW;
+  static constexpr int kABytes = kBM * kRow;
+  static constexpr int kBBytes = BN * kRow;          // one of hi, lo
+  static constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  static constexpr int kFree = kSmemMax - 1024 - 8 * 16;
+  static constexpr int kStages = kFree / kStageBytes < 8 ? kFree / kStageBytes : 8;
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  static_assert(kStages >= 4 && kSmem <= kSmemMax, "shared memory of one block");
+};
+
+// Byte offset of the 16-byte chunk c of row r in a tile of 64-byte rows
+// under the 64-byte swizzle (1024-byte aligned base).
+__device__ __forceinline__ int swz64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// The two k8 steps of one 16-channel slice, split: thread (g, t) of a warp
+// reads channels 4t .. 4t + 3 of rows r0 and r0 + 8 as one 16-byte load
+// each; k = t of step s is channel 4t + 2s and k = t + 4 is 4t + 2s + 1.
+// The weights' K order follows (lay_out_operands permutes each 16 input
+// channels by the 4 x 4 transpose), so the sums are the conv's.
+__device__ __forceinline__ void load_a_slice(const uint8_t* tile, int r0, int t4,
+                                             uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+  const float4 v0 = *reinterpret_cast<const float4*>(tile + swz64(r0, t4));
+  const float4 v1 = *reinterpret_cast<const float4*>(tile + swz64(r0 + 8, t4));
+  const float x0[4] = {v0.x, v1.x, v0.y, v1.y};
+  const float x1[4] = {v0.z, v1.z, v0.w, v1.w};
+  mr::split_tf32(x0, hi[0], lo[0]);
+  mr::split_tf32(x1, hi[1], lo[1]);
+}
+
+template <int MODE, int BN, int MW>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+conv_tf32(const __grid_constant__ CUtensorMap in_map, const __grid_constant__ CUtensorMap wt_map,
+          const TcArgs<float> p) {
+  using S = Tf32Shape<MODE, BN, MW>;
+  constexpr int kTaps = MODE == kUpPhase ? 4 : 9;
+  constexpr int kTapW = MODE == kUpPhase ? 2 : 3;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* a_tiles = align1024(smem_raw);                  // [stages][kBM pixels][64 B]
+  uint8_t* b_tiles = a_tiles + S::kStages * S::kABytes;    // [stages][hi, lo][BN columns][64 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_tiles + S::kStages * 2 * S::kBBytes);
+  uint64_t* empty = full + S::kStages;
+
+  const int k_slices = (p.cin + S::kBK - 1) / S::kBK;
+  const int k_iters = kTaps * k_slices;
+  const uint32_t rank = tc::cluster_rank();
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], kCluster * kConsumers / 32);
+    }
+    tc::fence_barrier_init();
+  }
+  tc::cluster_sync();
+
+  if (threadIdx.x >= kConsumers) {
+    tc::reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tc::prefetch_tensormap(&in_map);
+      tc::prefetch_tensormap(&wt_map);
+      int stage = 0;
+      uint32_t parity = 0;
+      for (int t = cluster; t < p.total; t += clusters) {
+        const Tile tl = decode(p, t, rank, BN);
+        const int pa = tl.phase >> 1, pb = tl.phase & 1;
+        for (int it = 0; it < k_iters; ++it) {
+          const int tap = it / k_slices, c0 = (it - tap * k_slices) * S::kBK;
+          const int tu = tap / kTapW, tv = tap - tu * kTapW;
+          const int dy = MODE == kUpPhase ? pa + tu - 1 : tu - 1;
+          const int dx = MODE == kUpPhase ? pb + tv - 1 : tv - 1;
+          tc::mbar_wait(&empty[stage], parity ^ 1);
+          tc::mbar_expect_tx(&full[stage], S::kStageBytes);
+          tc::tma_load_4d(a_tiles + stage * S::kABytes, &in_map, &full[stage], c0, tl.x0 + dx,
+                          tl.y0 + dy, tl.b);
+          // This block's half of the hi and the lo weight tile, to both blocks.
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+            tc::tma_load_4d_multicast(
+                b_tiles + (2 * stage + part) * S::kBBytes + rank * (BN / 2) * S::kRow, &wt_map,
+                &full[stage], (1 << kCluster) - 1, c0, tap, tl.n0 + (int)rank * (BN / 2),
+                2 * tl.phase + part);
+          if (++stage == S::kStages) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+      }
+      for (int i = 0; i < S::kStages; ++i) {
+        tc::mbar_wait(&empty[stage], parity ^ 1);
+        if (++stage == S::kStages) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+  } else {
+    tc::reg_alloc<232>();
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float* scale = p.aff;
+    const float* shift = p.aff + p.aff_stride;
+    const int cols_log2 = __ffs(p.cols) - 1;
+    float acc[MW][BN / 2];
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int t = cluster; t < p.total; t += clusters) {
+      const Tile tl = decode(p, t, rank, BN);
+#pragma unroll
+      for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[mw][i] = 0.f;
+      for (int it = 0; it < k_iters; ++it) {
+        tc::mbar_wait(&full[stage], parity);
+        const uint8_t* a = a_tiles + stage * S::kABytes;
+        uint32_t ah[MW][2][4], al[MW][2][4];
+#pragma unroll
+        for (int mw = 0; mw < MW; ++mw)
+          load_a_slice(a, 64 * (MW * wg + mw) + 16 * warp + g, t4, ah[mw], al[mw]);
+        const uint64_t dh = tc::swizzle_desc<S::kRow>(b_tiles + 2 * stage * S::kBBytes);
+        const uint64_t dl = tc::swizzle_desc<S::kRow>(b_tiles + (2 * stage + 1) * S::kBBytes);
+#pragma unroll
+        for (int mw = 0; mw < MW; ++mw) tc::fence_regs(acc[mw]);
+        tc::wgmma_fence();
+        // Each k8 step as a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first.
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int mw = 0; mw < MW; ++mw) tc::wgmma_tf32<BN>(acc[mw], al[mw][s], dh + 2 * s);
+#pragma unroll
+          for (int mw = 0; mw < MW; ++mw) tc::wgmma_tf32<BN>(acc[mw], ah[mw][s], dl + 2 * s);
+#pragma unroll
+          for (int mw = 0; mw < MW; ++mw) tc::wgmma_tf32<BN>(acc[mw], ah[mw][s], dh + 2 * s);
+        }
+        tc::wgmma_commit();
+        // The A registers are rewritten next slice: wait for every product.
+        tc::wgmma_wait<0>();
+#pragma unroll
+        for (int mw = 0; mw < MW; ++mw) tc::fence_regs(acc[mw]);
+        if (lane == 0)
+          for (uint32_t r = 0; r < kCluster; ++r) tc::mbar_arrive_cluster(&empty[stage], r);
+        if (++stage == S::kStages) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+
+      // Epilogue from registers: rows 64 mw + 16 warp + g + 8h of this
+      // warpgroup, f32 pairs of channels straight to device memory.
+      size_t pix[MW][2];
+      bool in[MW][2];
+      const int pa = tl.phase >> 1, pb = tl.phase & 1;
+#pragma unroll
+      for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 64 * (MW * wg + mw) + 16 * warp + g + 8 * h;
+          const int y = tl.y0 + (m >> cols_log2), x = tl.x0 + (m & (p.cols - 1));
+          in[mw][h] = tl.valid && y < p.H && x < p.W;
+          pix[mw][h] = MODE == kUpPhase
+                           ? ((size_t)(tl.b * 2 * p.H + 2 * y + pa)) * 2 * p.W + 2 * x + pb
+                           : (size_t)(tl.b * p.H + y) * p.W + x;
+        }
+      if constexpr (S::kGlu) {
+        // Columns 16q .. 16q + 7: values of channels 8q .. 8q + 7 of this
+        // tile; 16q + 8 .. 16q + 15: their gates.
+#pragma unroll
+        for (int q = 0; q < BN / 16; ++q) {
+          const int col = tl.n0 + 16 * q + 2 * t4;
+          const int ch = tl.n0 / 2 + 8 * q + 2 * t4;
+          if (ch >= p.c_out) continue;
+          const float2 sv = __ldg(reinterpret_cast<const float2*>(scale + col));
+          const float2 sg = __ldg(reinterpret_cast<const float2*>(scale + col + 8));
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(shift + col));
+          const float2 bg = __ldg(reinterpret_cast<const float2*>(shift + col + 8));
+#pragma unroll
+          for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (!in[mw][h]) continue;
+              const float v0 = acc[mw][8 * q + 2 * h] * sv.x + bv.x;
+              const float v1 = acc[mw][8 * q + 2 * h + 1] * sv.y + bv.y;
+              const float g0 = acc[mw][8 * q + 4 + 2 * h] * sg.x + bg.x;
+              const float g1 = acc[mw][8 * q + 4 + 2 * h + 1] * sg.y + bg.y;
+              *reinterpret_cast<float2*>(p.out + pix[mw][h] * p.c_out + ch) =
+                  make_float2(v0 * fast_sigmoidf(g0), v1 * fast_sigmoidf(g1));
+            }
+        }
+      } else {
+        // The residual is read by the thread that overwrites it (the conv
+        // runs in place after the first block).  res may alias out, so
+        // the loads of kG column tiles are all issued before their stores:
+        // otherwise each load waits behind the store before it.
+        constexpr int kG = 4;
+#pragma unroll
+        for (int j0 = 0; j0 < BN / 8; j0 += kG) {
+          float2 r[kG][MW][2];
+#pragma unroll
+          for (int jj = 0; jj < kG; ++jj) {
+            const int ch = tl.n0 + 8 * (j0 + jj) + 2 * t4;
+#pragma unroll
+            for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                r[jj][mw][h] = in[mw][h] && ch < p.c_out
+                                   ? *reinterpret_cast<const float2*>(
+                                         p.res + pix[mw][h] * p.c_out + ch)
+                                   : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int jj = 0; jj < kG; ++jj) {
+            const int j = j0 + jj, ch = tl.n0 + 8 * j + 2 * t4;
+            if (ch >= p.c_out) continue;
+            const float2 sc = __ldg(reinterpret_cast<const float2*>(scale + ch));
+            const float2 sh = __ldg(reinterpret_cast<const float2*>(shift + ch));
+#pragma unroll
+            for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (!in[mw][h]) continue;
+                *reinterpret_cast<float2*>(p.out + pix[mw][h] * p.c_out + ch) =
+                    make_float2(r[jj][mw][h].x + (acc[mw][4 * j + 2 * h] * sc.x + sh.x),
+                                r[jj][mw][h].y + (acc[mw][4 * j + 2 * h + 1] * sc.y + sh.y));
+              }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The RGB head in f32: the bf16 head's 8 x 32 pixel tile and warps, the
+// halo in slices of 16 channels (64-byte rows, the 64-byte swizzle), two
+// slices in flight.  Each slice is split into TF32 hi (in place) and lo
+// once, so the nine taps read split values; 3xTF32 on mma.sync m16n8k8,
+// the 3 output channels in one n8 tile.
+constexpr int kHeadChF = 16;
+constexpr int kHaloBytesF = kHaloRows * kHaloCols * kHeadChF * 4;
+constexpr int kHaloStrideF = (kHaloBytesF + 1023) / 1024 * 1024;
+constexpr int kWsFloatsF = 2 * 8 * 9 * kHeadChF;  // [hi, lo][8 columns][9 taps][16 channels]
+constexpr int kHeadSmemF =
+    3 * kHaloStrideF + kWsFloatsF * 4 + kHeadRows * kHeadCols * 3 * 4 + 16 + 1024;
+
+struct HeadArgsF {
+  const float* wt;  // [hi, lo][3][9 * cin], TF32 each
+  float* out;       // [B, H, W, 3]
+  int H, W, cin, tiles_y, tiles_x;
+};
+
+__global__ void __launch_bounds__(kHeadThreads, 2)
+rgb_head_tf32(const __grid_constant__ CUtensorMap up_map, const HeadArgsF p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* halo = align1024(smem_raw);                      // [2][kHaloStrideF]: slices, hi
+  uint8_t* halo_lo = halo + 2 * kHaloStrideF;               // the current slice's lo
+  float* ws = reinterpret_cast<float*>(halo + 3 * kHaloStrideF);
+  float* os = ws + kWsFloatsF;                               // [8][32][3]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(os + kHeadRows * kHeadCols * 3);  // [2]
+
+  const int per_img = p.tiles_y * p.tiles_x;
+  const int b = blockIdx.x / per_img, s = blockIdx.x - b * per_img;
+  const int ty = s / p.tiles_x;
+  const int y0 = ty * kHeadRows, x0 = (s - ty * p.tiles_x) * kHeadCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int slices = (p.cin + kHeadChF - 1) / kHeadChF;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(&bar[0], 1);
+    tc::mbar_init(&bar[1], 1);
+    tc::fence_barrier_init();
+    tc::mbar_expect_tx(&bar[0], kHaloBytesF);
+    tc::tma_load_4d(halo, &up_map, &bar[0], 0, x0 - 1, y0 - 1, b);
+  }
+  __syncthreads();
+
+  float acc[2][4] = {};
+  for (int sl = 0; sl < slices; ++sl) {
+    const int buf = sl & 1;
+    uint8_t* hi = halo + buf * kHaloStrideF;
+    if (threadIdx.x == 0 && sl + 1 < slices) {
+      // The other buffer was split in place two slices ago (generic
+      // writes, ordered by the last __syncthreads) and is free.
+      tc::fence_proxy_async();
+      tc::mbar_expect_tx(&bar[buf ^ 1], kHaloBytesF);
+      tc::tma_load_4d(halo + (buf ^ 1) * kHaloStrideF, &up_map, &bar[buf ^ 1],
+                      (sl + 1) * kHeadChF, x0 - 1, y0 - 1, b);
+    }
+    // This slice's weights, zeros past the 3 columns and past cin (a
+    // multiple of 8, so 4 channels at once).
+    for (int i = threadIdx.x; i < kWsFloatsF / 4; i += kHeadThreads) {
+      const int row = i / (kHeadChF / 4), c = sl * kHeadChF + 4 * (i - row * (kHeadChF / 4));
+      const int part = row / 72, n = (row / 9) & 7, tap = row % 9;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n < 3 && c < p.cin)
+        v = __ldg(reinterpret_cast<const float4*>(p.wt + ((size_t)part * 3 + n) * 9 * p.cin +
+                                                  tap * p.cin + c));
+      reinterpret_cast<float4*>(ws)[i] = v;
+    }
+    tc::mbar_wait(&bar[buf], (sl >> 1) & 1);
+    for (int i = threadIdx.x; i < kHaloBytesF / 16; i += kHeadThreads) {
+      float4* h4 = reinterpret_cast<float4*>(hi) + i;
+      const float4 v = *h4;
+      const float x[4] = {v.x, v.y, v.z, v.w};
+      uint32_t vh[4], vl[4];
+      mr::split_tf32(x, vh, vl);
+      *h4 = make_float4(__uint_as_float(vh[0]), __uint_as_float(vh[1]), __uint_as_float(vh[2]),
+                        __uint_as_float(vh[3]));
+      reinterpret_cast<float4*>(halo_lo)[i] =
+          make_float4(__uint_as_float(vl[0]), __uint_as_float(vl[1]), __uint_as_float(vl[2]),
+                      __uint_as_float(vl[3]));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int u = tap / 3, v = tap - u * 3;
+      // B fragments of both k8 steps: column g, channels 4 t4 .. 4 t4 + 3.
+      const float4 wh = *reinterpret_cast<const float4*>(ws + (g * 9 + tap) * kHeadChF + 4 * t4);
+      const float4 wl =
+          *reinterpret_cast<const float4*>(ws + ((8 + g) * 9 + tap) * kHeadChF + 4 * t4);
+      const uint32_t bh[2][2] = {{__float_as_uint(wh.x), __float_as_uint(wh.y)},
+                                 {__float_as_uint(wh.z), __float_as_uint(wh.w)}};
+      const uint32_t bl[2][2] = {{__float_as_uint(wl.x), __float_as_uint(wl.y)},
+                                 {__float_as_uint(wl.z), __float_as_uint(wl.w)}};
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int r0 = (warp + u) * kHaloCols + 16 * grp + g + v;
+        const float4 h0 = *reinterpret_cast<const float4*>(hi + swz64(r0, t4));
+        const float4 h1 = *reinterpret_cast<const float4*>(hi + swz64(r0 + 8, t4));
+        const float4 l0 = *reinterpret_cast<const float4*>(halo_lo + swz64(r0, t4));
+        const float4 l1 = *reinterpret_cast<const float4*>(halo_lo + swz64(r0 + 8, t4));
+        const uint32_t ah0[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                                 __float_as_uint(h0.y), __float_as_uint(h1.y)};
+        const uint32_t al0[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                                 __float_as_uint(l0.y), __float_as_uint(l1.y)};
+        const uint32_t ah1[4] = {__float_as_uint(h0.z), __float_as_uint(h1.z),
+                                 __float_as_uint(h0.w), __float_as_uint(h1.w)};
+        const uint32_t al1[4] = {__float_as_uint(l0.z), __float_as_uint(l1.z),
+                                 __float_as_uint(l0.w), __float_as_uint(l1.w)};
+        mr::mma_3xtf32(acc[grp], ah0, al0, bh[0], bl[0]);
+        mr::mma_3xtf32(acc[grp], ah1, al1, bh[1], bl[1]);
+      }
+    }
+    __syncthreads();  // the slice's buffers and weights are free
+  }
+
+  if (t4 < 2) {
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ch = 2 * t4 + e;
+          if (ch < 3)
+            os[(warp * kHeadCols + 16 * grp + g + 8 * h) * 3 + ch] = tanhf(acc[grp][2 * h + e]);
+        }
+  }
+  __syncthreads();
+
+  // Warp w writes tile row w: 16-byte stores for a whole, aligned row.
+  const int y = y0 + warp;
+  if (y >= p.H) return;
+  const int nx = min(kHeadCols, p.W - x0);
+  float* dst = p.out + ((size_t)(b * p.H + y) * p.W + x0) * 3;
+  const float* src = os + warp * kHeadCols * 3;
+  if (nx == kHeadCols && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    if (lane < kHeadCols * 3 * 4 / 16)
+      reinterpret_cast<float4*>(dst)[lane] = reinterpret_cast<const float4*>(src)[lane];
+  } else {
+    for (int i = lane; i < nx * 3; i += 32) dst[i] = src[i];
+  }
+}
+
 // --- host side -------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -760,24 +959,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D bf16 tensor map, dims innermost first, dense strides, zeros
-// outside.
+// A 4-D tensor map of bf16 or f32 elements, dims innermost first, dense
+// strides, zeros outside.
+template <typename T>
 bool map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
             const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   cuuint64_t gdim[4], gstride[3];
   cuuint32_t bdim[4], estride[4] = {1, 1, 1, 1};
-  uint64_t stride = 2;
+  uint64_t stride = sizeof(T);
   for (int i = 0; i < 4; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
     stride *= dims[i];
     if (i < 3) gstride[i] = stride;
   }
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim, gstride,
-             bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  constexpr CUtensorMapDataType kType =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, kType, 4, const_cast<void*>(base), gdim, gstride, bdim, estride,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -785,13 +986,31 @@ struct Geometry {
   int rows, cols, tiles_y, tiles_x, channels;  // channels: the TMA box's depth
 };
 
-// One conv: input map over [B, H, W, cin] (box BK x cols x rows x 1),
-// weight map over [phases][n_gemm][taps][cin] (box BK x 1 x BN x 1).
-template <int MODE, int BN, int MW, int BK>
-cudaError_t launch_tc(const void* in, const void* wt, const float* aff, const bf16* res, bf16* out,
-                      int B, int H, int W, int cin, int n_gemm, int c_out, const Geometry& geo,
-                      int sms, cudaStream_t s) {
+// The conv kernel of a storage type: bf16 (conv_tc, K slices of BK
+// channels) or f32 (conv_tf32, 16; the weights come as hi and lo parts).
+template <typename T, int MODE, int BN, int MW, int BK>
+struct Conv {
   using S = TcShape<MODE, BN, MW, BK>;
+  static constexpr int kParts = 1;
+  static auto kernel() { return conv_tc<MODE, BN, MW, BK>; }
+};
+template <int MODE, int BN, int MW, int BK>
+struct Conv<float, MODE, BN, MW, BK> {
+  static_assert(BK == 16, "f32 K slices are 16 channels");
+  using S = Tf32Shape<MODE, BN, MW>;
+  static constexpr int kParts = 2;
+  static auto kernel() { return conv_tf32<MODE, BN, MW>; }
+};
+
+// One conv: input map over [B, H, W, cin] (box BK x cols x rows x 1),
+// weight map over [phases x parts][n_gemm][taps][cin] (box BK x 1 x BN/2
+// x 1; parts: 1 in bf16, hi and lo in f32).
+template <typename T, int MODE, int BN, int MW, int BK>
+cudaError_t launch_conv(const void* in, const void* wt, const float* aff, const T* res, T* out,
+                        int B, int H, int W, int cin, int n_gemm, int c_out, const Geometry& geo,
+                        int sms, cudaStream_t s) {
+  using K = Conv<T, MODE, BN, MW, BK>;
+  using S = typename K::S;
   constexpr int kTaps = MODE == kUpPhase ? 4 : 9;
   constexpr CUtensorMapSwizzle kSwizzle =
       S::kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -800,13 +1019,14 @@ cudaError_t launch_tc(const void* in, const void* wt, const float* aff, const bf
     return cudaErrorInvalidValue;
   const int phases = MODE == kUpPhase ? 4 : 1;
   CUtensorMap in_map, wt_map;
-  if (!map_4d(&in_map, in, {(uint64_t)cin, (uint64_t)W, (uint64_t)H, (uint64_t)B},
-              {BK, (uint32_t)geo.cols, (uint32_t)geo.rows, 1}, kSwizzle) ||
-      !map_4d(&wt_map, wt, {(uint64_t)cin, kTaps, (uint64_t)n_gemm, (uint64_t)phases},
-              {BK, 1, BN / kCluster, 1}, kSwizzle))
+  if (!map_4d<T>(&in_map, in, {(uint64_t)cin, (uint64_t)W, (uint64_t)H, (uint64_t)B},
+                 {BK, (uint32_t)geo.cols, (uint32_t)geo.rows, 1}, kSwizzle) ||
+      !map_4d<T>(&wt_map, wt,
+                 {(uint64_t)cin, kTaps, (uint64_t)n_gemm, (uint64_t)(phases * K::kParts)},
+                 {BK, 1, BN / kCluster, 1}, kSwizzle))
     return cudaErrorInvalidValue;
-  TcArgs a{aff, res, out, H, W, cin, n_gemm, c_out, geo.rows, geo.cols, geo.tiles_y,
-           geo.tiles_x, 0, 0, 0, 0, (n_gemm + kAffinePad - 1) / kAffinePad * kAffinePad};
+  TcArgs<T> a{aff, res, out, H, W, cin, n_gemm, c_out, geo.rows, geo.cols, geo.tiles_y,
+              geo.tiles_x, 0, 0, 0, 0, (n_gemm + kAffinePad - 1) / kAffinePad * kAffinePad};
   a.m_tiles = B * geo.tiles_y * geo.tiles_x;
   a.n_tiles = (n_gemm + BN - 1) / BN;
   a.m_groups = (a.m_tiles + kCluster - 1) / kCluster;
@@ -826,32 +1046,69 @@ cudaError_t launch_tc(const void* in, const void* wt, const float* aff, const bf
   // and how many clusters of it the card holds at once.
   static int max_clusters = 0;
   if (max_clusters == 0) {
-    cudaError_t err = cudaFuncSetAttribute(conv_tc<MODE, BN, MW, BK>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    cudaError_t err =
+        cudaFuncSetAttribute(K::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
     if (err != cudaSuccess) return err;
     cfg.gridDim = dim3(kCluster * sms / 2);
-    err = cudaOccupancyMaxActiveClusters(&max_clusters, conv_tc<MODE, BN, MW, BK>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&max_clusters, K::kernel(), &cfg);
     if (err != cudaSuccess) return err;
     if (max_clusters < 1) return cudaErrorInvalidConfiguration;
   }
   // Persistent: as many clusters as the card holds at once.
   cfg.gridDim = dim3(kCluster * (a.total < max_clusters ? a.total : max_clusters));
-  return cudaLaunchKernelEx(&cfg, conv_tc<MODE, BN, MW, BK>, in_map, wt_map, a);
+  return cudaLaunchKernelEx(&cfg, K::kernel(), in_map, wt_map, a);
 }
 
-cudaError_t run_bf16(const bf16* x, int n_res, const void* const* w1, const void* const* a1,
-                     const void* const* w2, const void* const* a2, const void* w_up,
-                     const void* a_up, const void* w_rgb, void* up_out, void* rgb_out,
-                     void* scratch_y, void* scratch_h, int B, int H, int W, int C,
-                     const int* geometry, cudaStream_t s) {
+// The head kernel of a storage type and its halo slice: bf16 64 channels
+// (128-byte swizzle), f32 16 (64-byte).
+template <typename T>
+cudaError_t launch_head(const void* up, const void* w_rgb, void* rgb_out, int B, int H, int W,
+                        int C, const Geometry& head, cudaStream_t s) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kCh = kF32 ? kHeadChF : kHeadCh;
+  constexpr int kSmem = kF32 ? kHeadSmemF : kHeadSmem;
+  if (head.rows != kHeadRows || head.cols != kHeadCols || head.tiles_y * kHeadRows < 2 * H ||
+      head.tiles_x * kHeadCols < 2 * W || head.channels != kCh)
+    return cudaErrorInvalidValue;
+  CUtensorMap up_map;
+  if (!map_4d<T>(&up_map, up, {(uint64_t)C / 2, (uint64_t)2 * W, (uint64_t)2 * H, (uint64_t)B},
+                 {kCh, kHaloCols, kHaloRows, 1},
+                 kF32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const auto kernel = [] {
+    if constexpr (kF32)
+      return rgb_head_tf32;
+    else
+      return rgb_head_tc;
+  }();
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  using Args = typename std::conditional<kF32, HeadArgsF, HeadArgs>::type;
+  const Args a{static_cast<const T*>(w_rgb), static_cast<T*>(rgb_out), 2 * H, 2 * W, C / 2,
+               head.tiles_y, head.tiles_x};
+  kernel<<<B * head.tiles_y * head.tiles_x, kHeadThreads, kSmem, s>>>(up_map, a);
+  return cudaGetLastError();
+}
+
+// The chain in storage type T: bf16 K slices of 64 (C -> 2C, upsample) and
+// 32 (C -> C) channels, the fastest measured for each kind; f32 16.
+template <typename T>
+cudaError_t run(const T* x, int n_res, const void* const* w1, const void* const* a1,
+                const void* const* w2, const void* const* a2, const void* w_up, const void* a_up,
+                const void* w_rgb, void* up_out, void* rgb_out, void* scratch_y, void* scratch_h,
+                int B, int H, int W, int C, const int* geometry, cudaStream_t s) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kBkGlu = kF32 ? 16 : 64, kBkRes = kF32 ? 16 : 32, kBkUp = kF32 ? 16 : 64;
   auto geo = [&](int i) {
     const int* g = geometry + 5 * i;
     return Geometry{g[0], g[1], g[2], g[3], g[4]};
   };
   const Geometry glu = geo(0), res = geo(1), up = geo(2), head = geo(3);
-  if (head.rows != kHeadRows || head.cols != kHeadCols || head.tiles_y * kHeadRows < 2 * H ||
-      head.tiles_x * kHeadCols < 2 * W || head.channels != kHeadCh)
-    return cudaErrorInvalidValue;
   static int sms = 0;  // the persistent grid: one block per SM
   cudaError_t err;
   int dev;
@@ -860,65 +1117,50 @@ cudaError_t run_bf16(const bf16* x, int n_res, const void* const* w1, const void
        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess))
     return err;
   auto f = [](const void* q) { return static_cast<const float*>(q); };
-  bf16* y = static_cast<bf16*>(scratch_y);
-  bf16* hs = static_cast<bf16*>(scratch_h);
-  const bf16* h = x;
+  T* y = static_cast<T*>(scratch_y);
+  T* hs = static_cast<T*>(scratch_h);
+  const T* h = x;
   for (int r = 0; r < n_res; ++r) {
     // y = GLU(conv(h, k1) * s1 + b1): GEMM N = 2C (value/gate interleaved), C out.
-    if ((err = launch_tc<kGlu3x3, 256, 1, 64>(h, w1[r], f(a1[r]), nullptr, y, B, H, W, C, 2 * C,
-                                              C, glu, sms, s)) != cudaSuccess)
+    if ((err = launch_conv<T, kGlu3x3, 256, 1, kBkGlu>(h, w1[r], f(a1[r]), nullptr, y, B, H, W,
+                                                      C, 2 * C, C, glu, sms, s)) != cudaSuccess)
       return err;
     // h = h + conv(y, k2) * s2 + b2 into scratch_h (in place after the first
-    // block: a tile reads its residual before it writes the same pixels).
-    if ((err = launch_tc<kResidual3x3, 128, 2, 32>(y, w2[r], f(a2[r]), h, hs, B, H, W, C, C, C,
-                                                   res, sms, s)) != cudaSuccess)
+    // block: each output's residual is read before that output is written).
+    if ((err = launch_conv<T, kResidual3x3, 128, 2, kBkRes>(y, w2[r], f(a2[r]), h, hs, B, H, W,
+                                                           C, C, C, res, sms, s)) != cudaSuccess)
       return err;
     h = hs;
   }
   // up = GLU(conv(nearest2x(h), k_up) * s + b): four subpixel phases.
-  if ((err = launch_tc<kUpPhase, 128, 2, 64>(h, w_up, f(a_up), nullptr,
-                                             static_cast<bf16*>(up_out), B, H, W, C, C, C / 2,
-                                             up, sms, s)) != cudaSuccess)
+  if ((err = launch_conv<T, kUpPhase, 128, 2, kBkUp>(h, w_up, f(a_up), nullptr,
+                                                    static_cast<T*>(up_out), B, H, W, C, C,
+                                                    C / 2, up, sms, s)) != cudaSuccess)
     return err;
-  if (w_rgb != nullptr) {
-    CUtensorMap up_map;
-    if (!map_4d(&up_map, up_out,
-                {(uint64_t)C / 2, (uint64_t)2 * W, (uint64_t)2 * H, (uint64_t)B},
-                {kHeadCh, kHaloCols, kHaloRows, 1}, CU_TENSOR_MAP_SWIZZLE_128B))
-      return cudaErrorInvalidValue;
-    const HeadArgs a{static_cast<const bf16*>(w_rgb), static_cast<bf16*>(rgb_out), 2 * H, 2 * W,
-                     C / 2, head.tiles_y, head.tiles_x};
-    static bool attribute_set = false;
-    if (!attribute_set) {
-      if ((err = cudaFuncSetAttribute(rgb_head_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      kHeadSmem)) != cudaSuccess)
-        return err;
-      attribute_set = true;
-    }
-    rgb_head_tc<<<B * head.tiles_y * head.tiles_x, kHeadThreads, kHeadSmem, s>>>(up_map, a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if (w_rgb != nullptr) return launch_head<T>(up_out, w_rgb, rgb_out, B, H, W, C, head, s);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // x: [B, H, W, C] contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); C a
-// multiple of 16, n_res >= 1.  Weights in x's dtype, each output channel's
-// (tap, channel) run contiguous: w1[r]: [2C][9C], w2[r]: [C][9C], w_up:
-// [4][C][4C] (the subpixel phase kernels), w_rgb: [3][9 * C/2] or null.
-// a1[r]: f32 [2, 2C]; a2[r], a_up: f32 [2, C] (scale row, shift row).  In
-// bf16 the GLU convs' columns (w1, a1; w_up, a_up per phase) come in groups
-// of 16: the values of 8 channels, then their gates, and every affine row
-// is zero-padded to a multiple of 256 columns; in f32 all values, then all
-// gates, unpadded.  up_out: [B, 2H, 2W, C/2]; rgb_out: [B, 2H, 2W, 3] when w_rgb is
-// given; scratch_y, scratch_h: [B, H, W, C] each.  x is not written.
-// geometry (bf16 only): rows, cols, tiles_y, tiles_x and the TMA box depth
-// in channels of the tiles over [H, W] of the C -> 2C convs (128 pixels),
-// the C -> C convs and the upsample phases (256 pixels), then of the RGB
-// head over [2H, 2W] (tile_geometry in ops/kernels/reschain.py); a depth
-// other than the kernel's is refused.  bf16 tensors start on
-// 16-byte boundaries.
+// multiple of 16, n_res >= 1.  Weights as lay_out_operands (ops/kernels/
+// reschain.py) gives them, each output channel's (tap, channel) run
+// contiguous: w1[r]: [P][2C][9C], w2[r]: [P][C][9C], w_up: [4][P][C][4C]
+// (the subpixel phase kernels), w_rgb: [P][3][9 * C/2] or null, with P = 1
+// in bf16 and P = 2 (TF32 hi, lo) in f32, where the conv weights' input
+// channels also come permuted in groups of 16 (the 4 x 4 transpose; not
+// the head's).  a1[r]: f32 [2, 2C]; a2[r], a_up: f32 [2, C] (scale row,
+// shift row).  The GLU convs' columns (w1, a1; w_up, a_up per phase) come
+// in groups of 16: the values of 8 channels, then their gates, and every
+// affine row is zero-padded to a multiple of 256 columns.  up_out:
+// [B, 2H, 2W, C/2]; rgb_out: [B, 2H, 2W, 3] when w_rgb is given; scratch_y,
+// scratch_h: [B, H, W, C] each.  x is not written.  geometry: rows, cols,
+// tiles_y, tiles_x and the TMA box depth in channels of the tiles over
+// [H, W] of the C -> 2C convs (128 pixels), the C -> C convs and the
+// upsample phases (256 pixels), then of the RGB head over [2H, 2W]
+// (tile_geometry in ops/kernels/reschain.py); a depth other than the
+// kernel's is refused.  Every tensor starts on a 16-byte boundary.
 extern "C" int t2igan_reschain(const void* x, int n_res, const void* const* w1,
                                const void* const* a1, const void* const* w2,
                                const void* const* a2, const void* w_up, const void* a_up,
@@ -930,9 +1172,8 @@ extern "C" int t2igan_reschain(const void* x, int n_res, const void* const* w1,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)run_bf16(static_cast<const __nv_bfloat16*>(x), n_res, w1, a1, w2, a2, w_up,
-                         a_up, w_rgb, up_out, rgb_out, scratch_y, scratch_h, B, H, W, C,
-                         geometry, s);
-  return (int)run_f32(static_cast<const float*>(x), n_res, w1, a1, w2, a2, w_up, a_up, w_rgb,
-                      up_out, rgb_out, scratch_y, scratch_h, B, H, W, C, s);
+    return (int)run<bf16>(static_cast<const bf16*>(x), n_res, w1, a1, w2, a2, w_up, a_up,
+                          w_rgb, up_out, rgb_out, scratch_y, scratch_h, B, H, W, C, geometry, s);
+  return (int)run<float>(static_cast<const float*>(x), n_res, w1, a1, w2, a2, w_up, a_up, w_rgb,
+                         up_out, rgb_out, scratch_y, scratch_h, B, H, W, C, geometry, s);
 }

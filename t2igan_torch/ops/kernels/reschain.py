@@ -26,21 +26,31 @@ from t2igan_torch.ops.kernels import LAUNCHES, build
 KERNEL = "reschain"
 CHANNEL_MULTIPLE = 16  # the kernel's channel tiling (16-deep products)
 
-# Tiles of the bf16 kernels (tile_geometry): a conv tile is a patch of one
-# image, TILE_PIXELS[mode] output pixels (the wgmma row blocks of its two
-# consumer warpgroups: one each for the N = 2C convs, two for N = C), its
-# width one of PATCH_COLS; a head tile is an 8 x 32 patch read with its
-# halo.  TMA boxes are BOX_CHANNELS[mode] deep: 64 (128 bytes, the 128-byte
-# swizzle) or 32 (64 bytes, the 64-byte swizzle).
+# Tiles of the kernels (tile_geometry), the same in bf16 and f32: a conv
+# tile is a patch of one image, TILE_PIXELS[mode] output pixels (the wgmma
+# row blocks of its two consumer warpgroups: one each for the N = 2C convs,
+# two for N = C), its width one of PATCH_COLS; a head tile is an 8 x 32
+# patch read with its halo.  TMA boxes are BOX_CHANNELS[dtype][mode] deep:
+# in bf16 64 (128 bytes, the 128-byte swizzle) or 32 (64 bytes, the 64-byte
+# swizzle); in f32 16 (64 bytes, the 64-byte swizzle), the K slice of the
+# TF32 products.
 TILE_PIXELS = {"glu": 128, "residual": 256, "up": 256}
 CONV_MODES = tuple(TILE_PIXELS)
-# The bf16 affine rows are zero-padded to a multiple of AFFINE_PAD columns
-# (a multiple of every conv tile's N), so the epilogue runs without a
-# branch on the columns.
+# The affine rows are zero-padded to a multiple of AFFINE_PAD columns (a
+# multiple of every conv tile's N), so the epilogue runs without a branch
+# on the columns.
 AFFINE_PAD = 256
 PATCH_COLS = (128, 64, 32, 16, 8)
 HEAD_TILE = (8, 32)
-BOX_CHANNELS = {"glu": 64, "residual": 32, "up": 64, "head": 64}
+BOX_CHANNELS = {
+    torch.bfloat16: {"glu": 64, "residual": 32, "up": 64, "head": 64},
+    torch.float32: {"glu": 16, "residual": 16, "up": 16, "head": 16},
+}
+# The f32 convs' order of each 16 input channels along K (the 4 x 4
+# transpose): a thread of the kernel reads channels 4t .. 4t + 3 of a
+# pixel at once and gives them to k = t, t + 4 of two k8 steps, so K
+# position 8s + k of a slice holds channel 4 (k % 4) + 2s + k // 4.
+F32_K_ORDER = tuple(4 * (p % 4) + p // 4 for p in range(16))
 
 # Tap sets of the subpixel decomposition of conv3x3-over-nearest-2x (a copy
 # of the JAX package's ``_PHASE_TAPS``): output row 2i+a reads low-res rows
@@ -111,8 +121,42 @@ def resblock_chain_up_plain(x: torch.Tensor, rb_params: Sequence[RbParams],
     return (up_nhwc, rgb) if want_h else rgb
 
 
+F32_UNIT = 2.0 ** -24  # unit roundoff of f32
+
+
+def f32_tol(c: int, scale: float) -> float:
+    """How far the f32 kernels may stand from
+    :func:`resblock_chain_up_plain` in f32: the worst-case f32 rounding of
+    a 9C-term sum, about five convs deep, times ``scale`` (the largest
+    output magnitude), plus 1e-6."""
+    return 5 * 9 * c * F32_UNIT * scale + 1e-6
+
+
+def f32_f64_tol(plain_err: float, c: int, scale: float) -> float:
+    """The stricter f32 check, against the tail in float64: no farther from
+    it than twice the plain f32 version (``plain_err``) plus
+    min(12 C 2^-24, 2^-13) of ``scale``.
+
+    The kernels' 3xTF32 products are as good as f32's, but the tensor
+    cores add to an f32 accumulator rounding toward zero, three times a k8
+    step, so the chain stands a few C 2^-24 of its scale from float64
+    where plain f32 stands ~1e-6: on an H100 at most 7.7 C 2^-24 past
+    twice the plain error over every case of the card's check (the RGB
+    head at R = 3, C = 128; 2.3 at C = 256).  A fault (one TF32 product,
+    or the lo part of either operand left out) errs by ~2^-12 of each
+    term's size, which does not shrink with C: the CPU emulation of the
+    kernels puts it at 2.4e-4 of the scale or more at 16 x 16 (35 C 2^-24
+    at C = 128, 16 at C = 256), so the 2^-13 cap (1.2e-4, from C = 168 up)
+    keeps the limit at half of it where 12 C 2^-24 alone would reach it
+    by C ~ 330.  The kernels' fast GLU sigmoid errs by at most ~5 2^-24 of
+    the value (the emulation takes it at that worst case), under this
+    limit's resolution.  :func:`f32_tol` (45 C 2^-24) lets such faults
+    through at C = 128 where no RGB head follows."""
+    return 2 * plain_err + min(12 * c * F32_UNIT, 2.0 ** -13) * scale
+
+
 class TileGeometry(NamedTuple):
-    """How a bf16 kernel of K3 cuts its output into tiles: a patch of
+    """How a kernel of K3 cuts its output into tiles: a patch of
     ``rows`` x ``cols`` pixels of one image, ``tiles_y`` x ``tiles_x``
     patches an image, and the TMA box of its input tile, innermost first
     (channels, columns, rows, images)."""
@@ -124,8 +168,9 @@ class TileGeometry(NamedTuple):
     box: Tuple[int, int, int, int]
 
 
-def tile_geometry(h: int, w: int, mode: str) -> TileGeometry:
-    """Tiles of the bf16 kernels over an [h, w] grid.
+def tile_geometry(h: int, w: int, mode: str,
+                  dtype: torch.dtype) -> TileGeometry:
+    """Tiles of the kernels of ``dtype`` over an [h, w] grid.
 
     ``mode`` "glu", "residual" or "up" (the convs; for "up", [h, w] is the
     low-res input grid and each tile is one subpixel phase of its
@@ -134,14 +179,18 @@ def tile_geometry(h: int, w: int, mode: str) -> TileGeometry:
     needs the fewest patches (the wider on a tie); the box is that patch.
     ``mode`` "head" (the RGB head over the 2x grid): the head kernel's
     fixed 8 x 32 patch and a box with its one-pixel halo.  Boxes are
-    ``BOX_CHANNELS[mode]`` deep; every box dimension is at most 256, and
-    the inner one spans the row of its swizzle (64 or 128 bytes)."""
+    ``BOX_CHANNELS[dtype][mode]`` deep; every box dimension is at most
+    256, and the inner one spans the row of its swizzle (64 or 128
+    bytes)."""
     if h < 1 or w < 1:
         raise ValueError(f"tile_geometry takes h, w >= 1, got {h}, {w}")
+    if dtype not in BOX_CHANNELS:
+        raise ValueError(f"tile_geometry takes f32 or bf16, not {dtype}")
+    depth = BOX_CHANNELS[dtype]
     if mode == "head":
         rows, cols = HEAD_TILE
         return TileGeometry(rows, cols, -(-h // rows), -(-w // cols),
-                            (BOX_CHANNELS[mode], cols + 2, rows + 2, 1))
+                            (depth[mode], cols + 2, rows + 2, 1))
     if mode not in CONV_MODES:
         raise ValueError(f"unknown tile mode {mode!r}; expected one of "
                          f"{CONV_MODES + ('head',)}")
@@ -154,7 +203,7 @@ def tile_geometry(h: int, w: int, mode: str) -> TileGeometry:
     cols = min(PATCH_COLS, key=lambda c: (tiles(c)[0] * tiles(c)[1], -c))
     rows = pixels // cols
     return TileGeometry(rows, cols, *tiles(cols),
-                        (BOX_CHANNELS[mode], cols, rows, 1))
+                        (depth[mode], cols, rows, 1))
 
 
 def check_kernel_args(x: torch.Tensor, rb_params: Sequence[RbParams],
@@ -163,8 +212,8 @@ def check_kernel_args(x: torch.Tensor, rb_params: Sequence[RbParams],
                       rgb_kernel: Optional[torch.Tensor],
                       want_h: bool) -> None:
     """Raise ``ValueError`` on anything the kernel does not take: x not a
-    contiguous f32/bf16 [B, H, W, C] with C a positive multiple of 16, a
-    bf16 x that TMA cannot read (not on a 16-byte boundary, or a pixel's
+    contiguous f32/bf16 [B, H, W, C] with C a positive multiple of 16, an
+    x that TMA cannot read (not on a 16-byte boundary, or a pixel's
     channels not a multiple of 16 bytes), no residual block, a weight of
     another shape or device, a nothing-to-do call."""
     if not want_h and rgb_kernel is None:
@@ -177,15 +226,15 @@ def check_kernel_args(x: torch.Tensor, rb_params: Sequence[RbParams],
         raise ValueError("reschain kernel takes a contiguous NHWC x (an NCHW "
                          "map in channels_last memory, permuted)")
     b, h, w, c = x.shape
-    if x.dtype == torch.bfloat16:
-        # TMA reads the maps: a base on a 16-byte boundary, and rows (a
-        # pixel's channels, C of x and C/2 of the upsampled map) of whole
-        # 16-byte units.
-        if x.data_ptr() % 16:
-            raise ValueError("bf16 x must start on a 16-byte boundary")
-        if (c * x.element_size()) % 16 or (c // 2 * x.element_size()) % 16:
-            raise ValueError(f"bf16 rows of C = {c} and C/2 channels must be "
-                             f"multiples of 16 bytes")
+    # TMA reads the maps in both dtypes: a base on a 16-byte boundary, and
+    # rows (a pixel's channels, C of x and C/2 of the upsampled map) of
+    # whole 16-byte units.
+    name = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} x must start on a 16-byte boundary")
+    if (c * x.element_size()) % 16 or (c // 2 * x.element_size()) % 16:
+        raise ValueError(f"{name} rows of C = {c} and C/2 channels must be "
+                         f"multiples of 16 bytes")
     if c < CHANNEL_MULTIPLE or c % CHANNEL_MULTIPLE:
         raise ValueError(f"reschain kernel takes C a multiple of "
                          f"{CHANNEL_MULTIPLE}, got {c}")
@@ -223,8 +272,24 @@ def _affine_pair(scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return torch.stack([scale, shift]).float().contiguous()
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` and the kernels' ``mr::tf32_rna`` round a
+    finite value: half a TF32 step added to the magnitude bits, the low 13
+    bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> torch.Tensor:
+    """[2, *x.shape]: ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)``,
+    both TF32, ``hi + lo`` within 2^-22 |x| of x."""
+    hi = tf32_rna(x)
+    return torch.stack([hi, tf32_rna(x.float() - hi)])
+
+
 def glu_column_order(n: int, device=None) -> torch.Tensor:
-    """The bf16 kernels' GEMM column order of a GLU conv with ``n`` output
+    """The kernels' GEMM column order of a GLU conv with ``n`` output
     columns (values ``[0, n/2)``, gates ``[n/2, n)``): GEMM column ``16q + i``
     is value channel ``8q + i`` for ``i < 8`` and the gate of channel
     ``8q + i - 8`` otherwise, so the wgmma accumulator thread that holds a
@@ -241,11 +306,15 @@ def glu_column_order(n: int, device=None) -> torch.Tensor:
 class TailOperands(NamedTuple):
     """K3's operands laid out for the kernels of one dtype: the folded
     weights as given (``folded``, what the plain version takes) and the
-    GEMM-ordered copies that the C entry reads.  bf16: the GLU convs'
-    columns in :func:`glu_column_order` (``w1``/``a1``, and ``w_up``/``a_up``
-    per subpixel phase), the affine rows zero-padded to a multiple of
-    :data:`AFFINE_PAD` columns; f32: the plain [Cout, taps*Cin] order, all
-    values then all gates."""
+    GEMM-ordered copies that the C entry reads.  In both dtypes the GLU
+    convs' columns come in :func:`glu_column_order` (``w1``/``a1``, and
+    ``w_up``/``a_up`` per subpixel phase) and the affine rows (f32 in both)
+    are zero-padded to a multiple of :data:`AFFINE_PAD` columns.  bf16
+    weights are [Cout, taps*Cin] per conv (``w_up`` [4, ...], one per
+    phase); f32 ones have a parts axis before Cout, the TF32 ``hi`` and
+    ``lo`` of :func:`split_tf32` (``hi + lo`` is the f32 weight to
+    2^-22), and each 16 input channels of a conv (not of the head,
+    ``w_rgb``) in :data:`F32_K_ORDER`."""
 
     folded: tuple
     dtype: torch.dtype
@@ -266,34 +335,46 @@ def lay_out_operands(rb_params: Sequence[RbParams], up_kernel: torch.Tensor,
     own device).  Worth keeping while the weights do not change: it is
     ~50 small tensor ops a stage."""
 
-    tc = dtype == torch.bfloat16
+    if dtype not in BOX_CHANNELS:
+        raise ValueError(f"reschain operands are f32 or bf16, not {dtype}")
+    f32 = dtype == torch.float32
 
     def affine(scale, shift, order=None):
         a = _affine_pair(scale, shift)
-        if not tc:
-            return a
         if order is not None:
             a = a.index_select(-1, order)
         return F.pad(a, (0, -a.shape[-1] % AFFINE_PAD)).contiguous()
 
-    def glu(kernel, scale, shift):
-        w = _gemm_weight(kernel, dtype)
-        if not tc:
-            return w, affine(scale, shift)
-        order = glu_column_order(w.shape[-2], w.device)
-        return (w.index_select(-2, order).contiguous(),
-                affine(scale, shift, order))
+    def parts(w, conv=True):
+        """f32: [..., N, K] -> [..., 2 (hi, lo), N, K], a conv's input
+        channels in F32_K_ORDER; bf16: w."""
+        if not f32:
+            return w.contiguous()
+        if conv:
+            # made on w's device, as glu_column_order is
+            j = torch.arange(16, device=w.device)
+            order = 4 * (j % 4) + j // 4
+            w = w.unflatten(-1, (-1, 16)).index_select(-1, order).flatten(-2)
+        return split_tf32(w).movedim(0, -3).contiguous()
 
-    first = [glu(p[0], p[1], p[2]) for p in rb_params]
-    w_up, a_up = glu(phase_kernels(up_kernel.float()), up_scale, up_shift)
+    def conv(kernel, scale=None, shift=None):
+        w = _gemm_weight(kernel, dtype)
+        if scale is None:
+            return parts(w), None
+        order = glu_column_order(w.shape[-2], w.device)
+        return parts(w.index_select(-2, order)), affine(scale, shift, order)
+
+    first = [conv(p[0], p[1], p[2]) for p in rb_params]
+    w_up, a_up = conv(phase_kernels(up_kernel.float()), up_scale, up_shift)
     return TailOperands(
         folded=(tuple(rb_params), up_kernel, up_scale, up_shift, rgb_kernel),
         dtype=dtype, w1=tuple(w for w, _ in first),
         a1=tuple(a for _, a in first),
-        w2=tuple(_gemm_weight(p[3], dtype) for p in rb_params),
+        w2=tuple(conv(p[3])[0] for p in rb_params),
         a2=tuple(affine(p[4], p[5]) for p in rb_params),
         w_up=w_up, a_up=a_up,
-        w_rgb=None if rgb_kernel is None else _gemm_weight(rgb_kernel, dtype))
+        w_rgb=None if rgb_kernel is None else
+        parts(_gemm_weight(rgb_kernel, dtype), conv=False))
 
 
 @functools.lru_cache(maxsize=None)
@@ -359,7 +440,7 @@ def fused_tail(x: torch.Tensor, ops: TailOperands, want_h: bool = True):
     geometry = []
     for mode in CONV_MODES + ("head",):
         geo = tile_geometry(*((2 * h, 2 * w) if mode == "head" else (h, w)),
-                            mode)
+                            mode, dtype)
         geometry += [*geo[:4], geo.box[0]]
     geometry = (ctypes.c_int * len(geometry))(*geometry)
 

@@ -58,16 +58,16 @@ from t2igan_torch.train.train_gan import CondGanTrainer
 FAMILIES = (
     ("memory_read_fwd (K1)", ("memory_read_fwd",)),
     ("memory_read_bwd (K2)", ("memory_read_bwd",)),
-    # K3 by launch kind: the bf16 kernels (conv_tc<mode, N>, rgb_head_tc)
-    # and the f32 ones (reschain_conv<mode, ...>), names demangled or not.
+    # K3 by launch kind: the bf16 kernels (conv_tc<mode, ...>, rgb_head_tc)
+    # and the f32 ones (conv_tf32<mode, ...>, rgb_head_tf32), names
+    # demangled or not.
     ("K3 conv C->2C + GLU", ("conv_tc<0", "conv_tcili0e",
-                             "reschain_conv<0", "reschain_convili0e")),
+                             "conv_tf32<0", "conv_tf32ili0e")),
     ("K3 conv C->C + residual", ("conv_tc<1", "conv_tcili1e",
-                                 "reschain_conv<1", "reschain_convili1e")),
+                                 "conv_tf32<1", "conv_tf32ili1e")),
     ("K3 upsample phases + GLU", ("conv_tc<2", "conv_tcili2e",
-                                  "reschain_conv<2", "reschain_convili2e")),
-    ("K3 RGB head", ("rgb_head_tc", "reschain_conv<3",
-                     "reschain_convili3e")),
+                                  "conv_tf32<2", "conv_tf32ili2e")),
+    ("K3 RGB head", ("rgb_head_tc", "rgb_head_tf32")),
     ("nearest upsample", ("upsample",)),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("layer norm", ("layer_norm",)),
@@ -88,6 +88,46 @@ def family(name: str) -> str:
         if any(k in low for k in keys):
             return fam
     return "other"
+
+
+def trace_kernels(call, iters: int, cpu: bool = True, trace: str = ""):
+    """``iters`` calls of ``call`` under torch.profiler (the host's ops as
+    well with ``cpu``): the Chrome trace's events (kept at ``trace`` where
+    given) and the CUDA kernels among them.  Raises where the trace holds
+    no kernel, i.e. the profiler did not trace the card."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise RuntimeError("the trace holds no CUDA kernel: the profiler "
+                           "did not trace the card")
+    return events, kernels
+
+
+def ms_by_family(kernels, iters: int) -> collections.Counter:
+    """Device ms a call by :func:`family`, over ``iters`` calls' kernels."""
+    out = collections.Counter()
+    for e in kernels:
+        out[family(e["name"])] += e["dur"] / 1e3 / iters
+    return out
+
+
+def kernel_ms_by_family(call, iters: int = 3) -> collections.Counter:
+    """Device ms a call of ``call`` by :func:`family` (K3 by launch kind),
+    traced over ``iters`` calls after one more to warm up."""
+    call()
+    torch.cuda.synchronize()
+    return ms_by_family(trace_kernels(call, iters, cpu=False)[1], iters)
 
 
 def sampler_call(batch: int, dtype: torch.dtype, fused_tail: bool = False,
@@ -209,30 +249,15 @@ def main() -> None:
         call()
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.iters):
-            call()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = args.trace or os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    if not kernels:
-        raise SystemExit("the trace holds no CUDA kernel: the profiler did "
-                         "not trace the card")
+    events, kernels = trace_kernels(call, args.iters, trace=args.trace)
     busy = sum(e["dur"] for e in kernels) / 1e3 / args.iters
     start = min(e["ts"] for e in kernels)
     stop = max(e["ts"] + e["dur"] for e in kernels)
     window = (stop - start) / 1e3 / args.iters
-    by_family = collections.Counter()
+    by_family = ms_by_family(kernels, args.iters)
     by_name = collections.Counter()
     launches = collections.Counter()
     for e in kernels:
-        by_family[family(e["name"])] += e["dur"] / 1e3 / args.iters
         by_name[e["name"]] += e["dur"] / 1e3 / args.iters
         launches[e["name"]] += 1
     tail = " fused tail" if args.fused_tail else ""

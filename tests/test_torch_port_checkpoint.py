@@ -62,6 +62,18 @@ from t2igan_torch.train.state import init_gan_state
 from t2igan_torch.train.steps import make_gan_step, make_sampler
 from t2igan_torch.train.train_gan import CondGanTrainer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 LR = 0.1
 

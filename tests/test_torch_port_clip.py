@@ -19,6 +19,18 @@ from t2igan.models import clip as jclip
 from t2igan_torch.models import clip as tclip
 from t2igan_torch.models.convert import load_jax_clip_text
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

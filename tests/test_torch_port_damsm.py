@@ -75,6 +75,18 @@ from t2igan_torch.train.state import (clip_by_global_norm_, damsm_optimizer,
 from t2igan_torch.train.steps import make_damsm_loss, make_damsm_step
 from t2igan_torch.train.train_gan import CondGanTrainer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_UNIT = 2.0 ** -24
 ADAM_MOVE = 1.01  # bound on |Adam direction| over the first 3 steps
 TOL = dict(rtol=1e-4, atol=1e-4)

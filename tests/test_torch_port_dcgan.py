@@ -57,6 +57,18 @@ from t2igan_torch.train.export import (load_generator_weights,
                                        save_generator_npz)
 from t2igan_torch.train.steps import make_gan_step, make_sampler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 FUSED_TOL = dict(rtol=1e-3, atol=1e-3)
 B = 2

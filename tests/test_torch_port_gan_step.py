@@ -41,6 +41,18 @@ from t2igan_torch.train import train_gan
 from t2igan_torch.train.state import gan_optimizers, init_gan_state
 from t2igan_torch.train.steps import make_gan_step
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR = 1.0
 TOL = dict(rtol=1e-4, atol=1e-4)
 

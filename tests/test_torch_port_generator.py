@@ -23,6 +23,18 @@ from t2igan_torch.models import generator as tgen
 from t2igan_torch.models.convert import load_jax_generator
 from t2igan_torch.models.factory import build_generator
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, L = 2, 8
 # SMALL of tests/test_models_gan.py.

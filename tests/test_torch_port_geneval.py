@@ -15,6 +15,17 @@ from t2igan_torch.evaluation import fid as tfid
 from test_torch_port_inception import _pair
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("fused_tail", [False, True])
 def test_gen_eval_matches_jax(fused_tail):
     """The gen+eval path (sampler, rescale to [0, 1], bilinear 299, FID

@@ -23,6 +23,18 @@ from t2igan_torch.evaluation import fid as tfid
 from t2igan_torch.models import inception as tinc
 from t2igan_torch.models.convert import load_jax_inception
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIZE = 99
 
 

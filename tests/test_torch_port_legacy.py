@@ -28,6 +28,18 @@ from t2igan_torch.models.convert import (load_jax_cnn_encoder,
 from t2igan_torch.models.legacy import (CnnEncoder, GlobalAttentionText,
                                         RnnEncoder)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NTOKEN, NINPUT, NHIDDEN, T = 50, 16, 24, 8
 LENGTHS = [T, 5, 1, 0, 3, 7, 2, 6, 4, 0]
 

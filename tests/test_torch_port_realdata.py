@@ -40,6 +40,17 @@ from t2igan_torch.train import train_gan as ttrain_gan
 from t2igan_torch.train.pretrain_damsm import DamsmTrainer
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory, jax_native):
     return make_tree(tmp_path_factory.mktemp("cub"), n_train=8, n_test=8)

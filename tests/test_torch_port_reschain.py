@@ -29,6 +29,18 @@ from t2igan_torch.ops.kernels import reschain as trc
 from test_torch_port_generator import (B, SMALL, _gnet_variables, _inputs,
                                        _nchw, _nhwc, _randomize_bn)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REF_TOL = dict(rtol=1e-4, atol=1e-4)
 PALLAS_TOL = dict(rtol=1e-3, atol=1e-3)
 CHAIN_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -180,6 +192,9 @@ def _kernel_args(c=16, n_res=2, with_rgb=True, dtype=torch.float32):
           .view(2, 4, 4, 16)), "16-byte boundary"),
     (dict(x=torch.zeros((2, 4, 4, 24), dtype=torch.bfloat16)),
      "multiples of 16 bytes"),
+    # and for the f32 kernels, which read x and up through TMA too
+    (dict(x=torch.zeros(2 * 4 * 4 * 16 + 1)[1:].view(2, 4, 4, 16)),
+     "f32 x must start on a 16-byte boundary"),
 ])
 def test_kernel_arg_checks(change, match):
     args = dict(_kernel_args(), **change)

@@ -16,7 +16,9 @@ them:
 - ``tile_geometry``: for hypothesis-drawn grids the tiles cover every
   output pixel once, none leaves its image, and every TMA box fits
   (dimensions <= 256, an inner row of 128 bytes under the 128-byte
-  swizzle, of 64 under the 64-byte one for the C -> C convs);
+  swizzle, of 64 under the 64-byte one for the C -> C convs and for
+  every f32 box), the f32 tiles being the bf16 ones; the f32 layout
+  (TF32 hi and lo parts, the GLU column order, ``F32_K_ORDER``);
 - the laid-out operands kept on a fused stage follow in-place changes of
   its weights and running statistics.
 """
@@ -35,6 +37,18 @@ from t2igan.ops.pallas import reschain as jrc
 from t2igan_torch.ops.kernels import reschain as trc
 from test_torch_port_generator import _nhwc
 from test_torch_port_reschain import CHAIN_TOL, _next_stage_pair
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 LAYOUT_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_STEP = 2.0 ** -7  # one bf16 step, relative to the leading bit
@@ -188,15 +202,61 @@ def test_bf16_affines_are_padded(c):
 
 
 def test_f32_layout_keeps_values_then_gates():
+    """The f32 layout: each weight as TF32 hi and lo parts whose sum is the
+    folded weight (exactly, for weights of 21 significant bits; within
+    2^-22 for any), the GLU convs' columns in glu_column_order (each
+    channel's value beside its gate), the convs' input channels in
+    F32_K_ORDER (the head's as given), the affines padded as in bf16."""
     rng = np.random.default_rng(0)
-    _, *folded = _torch_args(np.zeros((1, 2, 2, 16), np.float32),
-                             *_params(rng, 16, 1, True), dtype=torch.float32)
-    ops = trc.lay_out_operands(*folded, torch.float32)
-    np.testing.assert_array_equal(
-        ops.w1[0].numpy(),
-        folded[0][0][0].permute(3, 0, 1, 2).reshape(32, 9 * 16).numpy())
-    np.testing.assert_array_equal(ops.a1[0].numpy(),
-                                  torch.stack(folded[0][0][1:3]).numpy())
+    c = 32
+    _, *folded = _torch_args(np.zeros((1, 2, 2, c), np.float32),
+                             *_params(rng, c, 1, True), dtype=torch.float32)
+    rb, up_k, up_s, up_b, rgb = folded
+    g = torch.Generator().manual_seed(1)
+
+    def wide(*shape):
+        # f32 weights with 21 significant bits (the low 3 cleared)
+        w = torch.randn(shape, generator=g) * 0.1
+        return (w.view(torch.int32) & -8).view(torch.float32)
+
+    k1, k2, up_k, rgb = wide(3, 3, c, 2 * c), wide(3, 3, c, c), \
+        wide(3, 3, c, c), wide(3, 3, c // 2, 3)
+    rb = [(k1, *rb[0][1:3], k2, *rb[0][4:])]
+    ops = trc.lay_out_operands(rb, up_k, up_s, up_b, rgb, torch.float32)
+    order = trc.glu_column_order(2 * c)
+    k_order = torch.tensor(trc.F32_K_ORDER)
+
+    def gemm(kernel):  # [..., 3, 3, cin, cout] -> [..., cout, 9, cin]
+        return kernel.movedim(-1, -4).flatten(-3, -2)
+
+    def k_ordered(w):
+        return w.unflatten(-1, (-1, 16))[..., k_order].flatten(-3)
+
+    want = {"w1": k_ordered(gemm(k1)[order]), "w2": k_ordered(gemm(k2)),
+            "w_up": k_ordered(gemm(trc.phase_kernels(up_k))
+                              [:, trc.glu_column_order(c)]),
+            "w_rgb": gemm(rgb).flatten(-2)}
+    got = {"w1": ops.w1[0], "w2": ops.w2[0], "w_up": ops.w_up,
+           "w_rgb": ops.w_rgb}
+    for name, w in want.items():
+        parts = got[name]
+        assert parts.dtype == torch.float32
+        hi, lo = parts.unbind(-3)
+        assert hi.shape == w.shape, name
+        for part in (hi, lo):
+            np.testing.assert_array_equal(trc.tf32_rna(part).numpy(),
+                                          part.numpy())
+        if name != "w_up":  # the phase kernels are sums of taps
+            np.testing.assert_array_equal((hi + lo).numpy(), w.numpy())
+        assert ((hi.double() + lo.double() - w.double()).abs()
+                <= 2.0 ** -22 * w.double().abs()).all(), name
+    # each value's gate: GEMM column 16q + i and 16q + 8 + i
+    np.testing.assert_array_equal(order[:8].numpy(), np.arange(8))
+    np.testing.assert_array_equal(order[8:16].numpy(), c + np.arange(8))
+    a1 = ops.a1[0]
+    assert a1.shape == (2, trc.AFFINE_PAD) and torch.all(a1[:, 2 * c:] == 0)
+    np.testing.assert_array_equal(a1[:, :2 * c].numpy(),
+                                  torch.stack(rb[0][1:3])[:, order].numpy())
 
 
 @pytest.mark.parametrize("with_rgb", [False, True])
@@ -245,13 +305,20 @@ def _covered(geo, h, w):
 
 @settings(max_examples=60, deadline=None)
 @given(h=st.integers(1, 160), w=st.integers(1, 160),
-       mode=st.sampled_from(trc.CONV_MODES + ("head",)))
-def test_tile_geometry_covers_each_pixel_once(h, w, mode):
-    geo = trc.tile_geometry(h, w, mode)
+       mode=st.sampled_from(trc.CONV_MODES + ("head",)),
+       dtype=st.sampled_from([torch.bfloat16, torch.float32]))
+def test_tile_geometry_covers_each_pixel_once(h, w, mode, dtype):
+    geo = trc.tile_geometry(h, w, mode, dtype)
     np.testing.assert_array_equal(_covered(geo, h, w), 1)
     assert all(1 <= d <= 256 for d in geo.box)
-    # the inner box dimension spans one row of the swizzle, in bf16
-    assert geo.box[0] * 2 == (64 if mode == "residual" else 128)
+    # the inner box dimension spans one row of the swizzle: in bf16 128
+    # bytes (64 for the C -> C convs), in f32 64 bytes, the 16-channel K
+    # slice of the TF32 products
+    row = geo.box[0] * torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.float32:
+        assert row == 64
+    else:
+        assert row == (64 if mode == "residual" else 128)
     if mode == "head":
         assert (geo.rows, geo.cols) == trc.HEAD_TILE
         assert geo.box[1:] == (geo.cols + 2, geo.rows + 2, 1)  # with halo
@@ -262,22 +329,39 @@ def test_tile_geometry_covers_each_pixel_once(h, w, mode):
         assert geo.box[1:] == (geo.cols, geo.rows, 1)
 
 
-@pytest.mark.parametrize("mode, h, w, rows, cols", [
+PATCH_CASES = [
     ("glu", 64, 64, 2, 64), ("glu", 128, 128, 1, 128), ("glu", 17, 19, 4, 32),
     ("glu", 1, 64, 1, 128), ("glu", 96, 40, 16, 8), ("glu", 24, 100, 8, 16),
     ("residual", 64, 64, 4, 64), ("residual", 128, 128, 2, 128),
-    ("up", 17, 19, 8, 32), ("up", 96, 40, 32, 8)])
+    ("up", 17, 19, 8, 32), ("up", 96, 40, 32, 8)]
+
+
+@pytest.mark.parametrize("mode, h, w, rows, cols", PATCH_CASES)
 def test_tile_geometry_picks_the_fewest_patches(mode, h, w, rows, cols):
-    geo = trc.tile_geometry(h, w, mode)
+    geo = trc.tile_geometry(h, w, mode, torch.bfloat16)
     assert (geo.rows, geo.cols) == (rows, cols)
     assert geo.tiles_y == -(-h // rows) and geo.tiles_x == -(-w // cols)
 
 
+@pytest.mark.parametrize("mode, h, w, rows, cols", PATCH_CASES)
+def test_tile_geometry_f32_cuts_the_same_patches(mode, h, w, rows, cols):
+    """The f32 kernels cut the patches of the bf16 ones (the same wgmma
+    row blocks); their boxes are 16 channels deep (64-byte rows)."""
+    geo = trc.tile_geometry(h, w, mode, torch.float32)
+    assert (geo.rows, geo.cols) == (rows, cols)
+    assert geo.tiles_y == -(-h // rows) and geo.tiles_x == -(-w // cols)
+    assert geo.box == (16, cols, rows, 1)
+    assert trc.tile_geometry(2 * h, 2 * w, "head", torch.float32).box == (
+        16, trc.HEAD_TILE[1] + 2, trc.HEAD_TILE[0] + 2, 1)
+
+
 def test_tile_geometry_rejects_what_it_cannot_tile():
     with pytest.raises(ValueError, match="unknown tile mode"):
-        trc.tile_geometry(8, 8, "rgb")
+        trc.tile_geometry(8, 8, "rgb", torch.bfloat16)
     with pytest.raises(ValueError, match="h, w >= 1"):
-        trc.tile_geometry(0, 8, "glu")
+        trc.tile_geometry(0, 8, "glu", torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        trc.tile_geometry(8, 8, "glu", torch.float16)
 
 
 def test_fused_stage_follows_in_place_weight_changes(rng):

@@ -29,6 +29,18 @@ from t2igan_torch.models.factory import build_generator
 from t2igan_torch.ops.image import uint8_from_tanh
 from t2igan_torch.train.steps import make_sampler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 CONFIGS = Path(tgenerate.__file__).parent / "configs"
 WIDTHS = dict(TREE={"BRANCH_NUM": 3},

@@ -38,6 +38,18 @@ from t2igan_torch.train import train_gan as ttrain_gan
 from t2igan_torch.train.export import load_generator_weights
 from t2igan_torch.train.steps import make_sampler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 JCFG = j_cfg_replace(CFG, DATA_DIR="", WORKERS=1,
                      TRAIN={"FLAG": False, "CLIP_MODEL_CHECKPOINT": ""})
 PCFG = tconfig.cfg_from_dict(dataclasses.asdict(JCFG))

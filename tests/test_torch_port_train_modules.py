@@ -39,6 +39,18 @@ from t2igan_torch.models.factory import (build_clip, build_discriminators,
 from t2igan_torch.ops.image import resize_nearest
 from t2igan_torch.ops.spectral import SNConv
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 TCFG = tconfig.cfg_from_dict(dataclasses.asdict(CFG))

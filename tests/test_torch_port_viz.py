@@ -39,6 +39,18 @@ from t2igan_torch.utils import glyphs
 from t2igan_torch.utils import logging as tlogging
 from t2igan_torch.utils import viz as tviz
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """This module's torch ops on one thread: beside the other test
+    processes a process that takes every core slows down many times over
+    (ROADMAP F26)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LATIN1 = st.characters(min_codepoint=0x20, max_codepoint=0xFF)
 LABEL = st.one_of(st.just(""), st.just("·"), st.text(LATIN1, max_size=16))
 
