@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from t2igan_torch.models.clip import ClipWithRegionHead
+from t2igan_torch.utils.profiling import span
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -37,7 +38,10 @@ def make_rank_fn(clip: ClipWithRegionHead
     l2-normalised (norm clipped at 1e-8) and dotted in f32: ``scores``
     [B, 1 + n_mis] with the true caption first, ``hits`` [B] bool where
     the argmax is 0.  Runs under ``torch.inference_mode()`` on ``clip``'s
-    device and dtype."""
+    device and dtype.  Under a profiler a call shows three spans: the
+    inputs moved to the device (``t2igan.rank.put``; the mis-captions
+    arrive as host arrays), the image tower (``t2igan.rank.image``) and
+    both text-tower calls (``t2igan.rank.text``)."""
     weight = clip.text_projection.weight
 
     def rank(images, ids_true, mask_true, ids_mis, mask_mis):
@@ -47,13 +51,18 @@ def make_rank_fn(clip: ClipWithRegionHead
             return torch.as_tensor(x, device=dev)
 
         with torch.inference_mode():
-            ids_mis, mask_mis = put(ids_mis), put(mask_mis)
+            with span("t2igan.rank.put"):
+                images = put(images)
+                ids_true, mask_true = put(ids_true), put(mask_true)
+                ids_mis, mask_mis = put(ids_mis), put(mask_mis)
             b, n_mis, w = ids_mis.shape
-            _, img_code = clip.encode_image_verbose(put(images).to(dtype))
-            _, sent_true = clip.encode_text_verbose(put(ids_true),
-                                                    put(mask_true))
-            _, sent_mis = clip.encode_text_verbose(
-                ids_mis.reshape(b * n_mis, w), mask_mis.reshape(b * n_mis, w))
+            with span("t2igan.rank.image"):
+                _, img_code = clip.encode_image_verbose(images.to(dtype))
+            with span("t2igan.rank.text"):
+                _, sent_true = clip.encode_text_verbose(ids_true, mask_true)
+                _, sent_mis = clip.encode_text_verbose(
+                    ids_mis.reshape(b * n_mis, w),
+                    mask_mis.reshape(b * n_mis, w))
             cands = torch.cat([sent_true[:, None, :],
                                sent_mis.reshape(b, n_mis, -1)], dim=1)
             scores = torch.einsum("bd,bnd->bn", _unit(img_code.float()),

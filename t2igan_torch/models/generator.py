@@ -40,6 +40,7 @@ from t2igan_torch.ops.attention import memory_read
 from t2igan_torch.ops.image import upsample_nearest_2x
 from t2igan_torch.ops.kernels import reschain
 from t2igan_torch.parallel.mesh import sum_autograd
+from t2igan_torch.utils.profiling import span
 
 UPBLOCK_VARIANTS = ("dilated", "naive", "subpixel")
 
@@ -226,7 +227,8 @@ class NextStageG(nn.Module):
     gate, ``num_residual`` ResBlocks and a 2x UpBlock.  Sub-module names
     follow the JAX module (``A``, ``B``, ``M_w``, ``M_r``, ``key``,
     ``value``, ``response_gate``).  With ``fused_tail`` the eval-mode
-    tail runs as the fused tail kernel."""
+    tail runs as the fused tail kernel.  Under a profiler each forward is
+    the span ``t2igan.g.stage``."""
 
     def __init__(self, ngf: int, nef: int, num_residual: int = 2,
                  upblock: str = "dilated", fused_tail: bool = False):
@@ -254,32 +256,34 @@ class NextStageG(nn.Module):
         head, HWIO; fused eval tail only) the first output is the RGB
         image [B, 3, 2H, 2W] in [-1, 1] instead, and the 2x feature map is
         never returned."""
-        h_code = h_code.contiguous(memory_format=torch.channels_last)
-        # Memory writing: a per-word gate between word and image features.
-        # The pooled state passes no gradient, as in the JAX package.
-        h_avg = h_code.mean(dim=(2, 3)).detach()                     # [B, ngf]
-        gate = torch.sigmoid(self.A(word_embs) + self.B(h_avg)[:, None, :])
-        m_w = F.relu(self.M_w(word_embs))                            # [B, L, 2ngf]
-        m_r = F.relu(self.M_r(h_avg))                                # [B, 2ngf]
-        memory = m_w * gate + m_r[:, None, :] * (1.0 - gate)
-        # Key addressing and value reading.
-        key = F.relu(self.key(memory))
-        value = F.relu(self.value(memory))
-        read, attn = memory_read(h_code.permute(0, 2, 3, 1), key, value,
-                                 pad_mask, return_attn=return_attn)
-        mem_out = read.permute(0, 3, 1, 2)
-        # Key response: a per-pixel gate over [h, read].
-        gate_r = torch.sigmoid(self.response_gate(
-            torch.cat([h_code, mem_out], dim=1)))
-        h_new = h_code * (1.0 - gate_r) + gate_r * mem_out
-        h_new = torch.cat([h_new, h_new], dim=1)
-        if self.fused_tail and not train:
-            return self._fused_tail(h_new, rgb_kernel), attn
-        if rgb_kernel is not None:
-            raise ValueError("rgb_kernel is taken by the fused eval tail only")
-        for block in self.residual:
-            h_new = block(h_new, train)
-        return self.upsample(h_new, train), attn
+        with span("t2igan.g.stage"):
+            h_code = h_code.contiguous(memory_format=torch.channels_last)
+            # Memory writing: a per-word gate between word and image features.
+            # The pooled state passes no gradient, as in the JAX package.
+            h_avg = h_code.mean(dim=(2, 3)).detach()                 # [B, ngf]
+            gate = torch.sigmoid(self.A(word_embs) + self.B(h_avg)[:, None, :])
+            m_w = F.relu(self.M_w(word_embs))                    # [B, L, 2ngf]
+            m_r = F.relu(self.M_r(h_avg))                           # [B, 2ngf]
+            memory = m_w * gate + m_r[:, None, :] * (1.0 - gate)
+            # Key addressing and value reading.
+            key = F.relu(self.key(memory))
+            value = F.relu(self.value(memory))
+            read, attn = memory_read(h_code.permute(0, 2, 3, 1), key, value,
+                                     pad_mask, return_attn=return_attn)
+            mem_out = read.permute(0, 3, 1, 2)
+            # Key response: a per-pixel gate over [h, read].
+            gate_r = torch.sigmoid(self.response_gate(
+                torch.cat([h_code, mem_out], dim=1)))
+            h_new = h_code * (1.0 - gate_r) + gate_r * mem_out
+            h_new = torch.cat([h_new, h_new], dim=1)
+            if self.fused_tail and not train:
+                return self._fused_tail(h_new, rgb_kernel), attn
+            if rgb_kernel is not None:
+                raise ValueError("rgb_kernel is taken by the fused eval tail "
+                                 "only")
+            for block in self.residual:
+                h_new = block(h_new, train)
+            return self.upsample(h_new, train), attn
 
     def _fused_tail(self, h_new: torch.Tensor,
                     rgb_kernel: Optional[torch.Tensor]) -> torch.Tensor:

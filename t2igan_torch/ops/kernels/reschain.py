@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from t2igan_torch.ops.kernels import LAUNCHES, build
+from t2igan_torch.utils.profiling import span
 
 KERNEL = "reschain"
 CHANNEL_MULTIPLE = 16  # the kernel's channel tiling (16-deep products)
@@ -333,48 +334,55 @@ def lay_out_operands(rb_params: Sequence[RbParams], up_kernel: torch.Tensor,
                      dtype: torch.dtype) -> TailOperands:
     """Lay out the folded weights for the kernels of ``dtype`` (on their
     own device).  Worth keeping while the weights do not change: it is
-    ~50 small tensor ops a stage."""
+    ~50 small tensor ops a stage.  Under a profiler each layout is the
+    span ``t2igan.kernel.layout``: none in a trace of calls whose operands
+    were kept."""
+    with span("t2igan.kernel.layout"):
+        if dtype not in BOX_CHANNELS:
+            raise ValueError(f"reschain operands are f32 or bf16, not "
+                             f"{dtype}")
+        f32 = dtype == torch.float32
 
-    if dtype not in BOX_CHANNELS:
-        raise ValueError(f"reschain operands are f32 or bf16, not {dtype}")
-    f32 = dtype == torch.float32
+        def affine(scale, shift, order=None):
+            a = _affine_pair(scale, shift)
+            if order is not None:
+                a = a.index_select(-1, order)
+            return F.pad(a, (0, -a.shape[-1] % AFFINE_PAD)).contiguous()
 
-    def affine(scale, shift, order=None):
-        a = _affine_pair(scale, shift)
-        if order is not None:
-            a = a.index_select(-1, order)
-        return F.pad(a, (0, -a.shape[-1] % AFFINE_PAD)).contiguous()
+        def parts(w, conv=True):
+            """f32: [..., N, K] -> [..., 2 (hi, lo), N, K], a conv's input
+            channels in F32_K_ORDER; bf16: w."""
+            if not f32:
+                return w.contiguous()
+            if conv:
+                # made on w's device, as glu_column_order is
+                j = torch.arange(16, device=w.device)
+                order = 4 * (j % 4) + j // 4
+                w = w.unflatten(-1, (-1, 16)).index_select(-1, order)
+                w = w.flatten(-2)
+            return split_tf32(w).movedim(0, -3).contiguous()
 
-    def parts(w, conv=True):
-        """f32: [..., N, K] -> [..., 2 (hi, lo), N, K], a conv's input
-        channels in F32_K_ORDER; bf16: w."""
-        if not f32:
-            return w.contiguous()
-        if conv:
-            # made on w's device, as glu_column_order is
-            j = torch.arange(16, device=w.device)
-            order = 4 * (j % 4) + j // 4
-            w = w.unflatten(-1, (-1, 16)).index_select(-1, order).flatten(-2)
-        return split_tf32(w).movedim(0, -3).contiguous()
+        def conv(kernel, scale=None, shift=None):
+            w = _gemm_weight(kernel, dtype)
+            if scale is None:
+                return parts(w), None
+            order = glu_column_order(w.shape[-2], w.device)
+            return (parts(w.index_select(-2, order)),
+                    affine(scale, shift, order))
 
-    def conv(kernel, scale=None, shift=None):
-        w = _gemm_weight(kernel, dtype)
-        if scale is None:
-            return parts(w), None
-        order = glu_column_order(w.shape[-2], w.device)
-        return parts(w.index_select(-2, order)), affine(scale, shift, order)
-
-    first = [conv(p[0], p[1], p[2]) for p in rb_params]
-    w_up, a_up = conv(phase_kernels(up_kernel.float()), up_scale, up_shift)
-    return TailOperands(
-        folded=(tuple(rb_params), up_kernel, up_scale, up_shift, rgb_kernel),
-        dtype=dtype, w1=tuple(w for w, _ in first),
-        a1=tuple(a for _, a in first),
-        w2=tuple(conv(p[3])[0] for p in rb_params),
-        a2=tuple(affine(p[4], p[5]) for p in rb_params),
-        w_up=w_up, a_up=a_up,
-        w_rgb=None if rgb_kernel is None else
-        parts(_gemm_weight(rgb_kernel, dtype), conv=False))
+        first = [conv(p[0], p[1], p[2]) for p in rb_params]
+        w_up, a_up = conv(phase_kernels(up_kernel.float()), up_scale,
+                          up_shift)
+        return TailOperands(
+            folded=(tuple(rb_params), up_kernel, up_scale, up_shift,
+                    rgb_kernel),
+            dtype=dtype, w1=tuple(w for w, _ in first),
+            a1=tuple(a for _, a in first),
+            w2=tuple(conv(p[3])[0] for p in rb_params),
+            a2=tuple(affine(p[4], p[5]) for p in rb_params),
+            w_up=w_up, a_up=a_up,
+            w_rgb=None if rgb_kernel is None else
+            parts(_gemm_weight(rgb_kernel, dtype), conv=False))
 
 
 @functools.lru_cache(maxsize=None)
@@ -426,46 +434,52 @@ def resblock_chain_up_fused(x: torch.Tensor, rb_params: Sequence[RbParams],
 def fused_tail(x: torch.Tensor, ops: TailOperands, want_h: bool = True):
     """:func:`resblock_chain_up_fused` on operands laid out beforehand
     (:func:`lay_out_operands`, in x's dtype): the plain version on
-    ``ops.folded`` for a CPU x; the kernels on a CUDA x."""
-    if x.device.type == "cpu":
-        return resblock_chain_up_plain(x, *ops.folded, want_h)
-    if x.device.type != "cuda":
-        raise ValueError(f"reschain runs on cuda or cpu, not {x.device}")
-    if ops.dtype != x.dtype:
-        raise ValueError(f"operands laid out for {ops.dtype}, x is {x.dtype}")
-    check_kernel_args(x, *ops.folded, want_h)
-    dtype = x.dtype
-    b, h, w, c = x.shape
-    n_res = len(ops.w1)
-    geometry = []
-    for mode in CONV_MODES + ("head",):
-        geo = tile_geometry(*((2 * h, 2 * w) if mode == "head" else (h, w)),
-                            mode, dtype)
-        geometry += [*geo[:4], geo.box[0]]
-    geometry = (ctypes.c_int * len(geometry))(*geometry)
+    ``ops.folded`` for a CPU x; the kernels on a CUDA x.  Under a profiler
+    each call is the span ``t2igan.kernel.reschain``, whose host interval
+    holds the launches of the call's 2R + 1 or 2R + 2 kernels."""
+    with span("t2igan.kernel.reschain"):
+        if x.device.type == "cpu":
+            return resblock_chain_up_plain(x, *ops.folded, want_h)
+        if x.device.type != "cuda":
+            raise ValueError(f"reschain runs on cuda or cpu, not {x.device}")
+        if ops.dtype != x.dtype:
+            raise ValueError(f"operands laid out for {ops.dtype}, x is "
+                             f"{x.dtype}")
+        check_kernel_args(x, *ops.folded, want_h)
+        dtype = x.dtype
+        b, h, w, c = x.shape
+        n_res = len(ops.w1)
+        geometry = []
+        for mode in CONV_MODES + ("head",):
+            geo = tile_geometry(
+                *((2 * h, 2 * w) if mode == "head" else (h, w)), mode, dtype)
+            geometry += [*geo[:4], geo.box[0]]
+        geometry = (ctypes.c_int * len(geometry))(*geometry)
 
-    def ptrs(ts):
-        return (ctypes.c_void_p * n_res)(*[t.data_ptr() for t in ts])
+        def ptrs(ts):
+            return (ctypes.c_void_p * n_res)(*[t.data_ptr() for t in ts])
 
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        up = torch.empty((b, 2 * h, 2 * w, c // 2), dtype=dtype,
-                         device=x.device)
-        rgb = (None if ops.w_rgb is None else
-               torch.empty((b, 2 * h, 2 * w, 3), dtype=dtype, device=x.device))
-        scratch = torch.empty((2, b, h, w, c), dtype=dtype, device=x.device)
-        err = fn(x.data_ptr(), n_res, ptrs(ops.w1), ptrs(ops.a1),
-                 ptrs(ops.w2), ptrs(ops.a2),
-                 ops.w_up.data_ptr(), ops.a_up.data_ptr(),
-                 None if ops.w_rgb is None else ops.w_rgb.data_ptr(),
-                 up.data_ptr(), None if rgb is None else rgb.data_ptr(),
-                 scratch[0].data_ptr(), scratch[1].data_ptr(),
-                 b, h, w, c, int(dtype == torch.bfloat16), geometry,
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"reschain kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES[KERNEL] += 1
-    if rgb is None:
-        return up
-    return (up, rgb) if want_h else rgb
+        fn = _entry()
+        with torch.cuda.device(x.device):
+            up = torch.empty((b, 2 * h, 2 * w, c // 2), dtype=dtype,
+                             device=x.device)
+            rgb = (None if ops.w_rgb is None else
+                   torch.empty((b, 2 * h, 2 * w, 3), dtype=dtype,
+                               device=x.device))
+            scratch = torch.empty((2, b, h, w, c), dtype=dtype,
+                                  device=x.device)
+            err = fn(x.data_ptr(), n_res, ptrs(ops.w1), ptrs(ops.a1),
+                     ptrs(ops.w2), ptrs(ops.a2),
+                     ops.w_up.data_ptr(), ops.a_up.data_ptr(),
+                     None if ops.w_rgb is None else ops.w_rgb.data_ptr(),
+                     up.data_ptr(), None if rgb is None else rgb.data_ptr(),
+                     scratch[0].data_ptr(), scratch[1].data_ptr(),
+                     b, h, w, c, int(dtype == torch.bfloat16), geometry,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"reschain kernel launch failed with CUDA "
+                               f"error {err}")
+        LAUNCHES[KERNEL] += 1
+        if rgb is None:
+            return up
+        return (up, rgb) if want_h else rgb

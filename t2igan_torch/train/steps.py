@@ -19,6 +19,7 @@ from t2igan_torch.ops.image import resize_nearest
 from t2igan_torch.parallel.mesh import DataMesh
 from t2igan_torch.train.state import (DamsmOptimizer, GanTrainState,
                                       ema_update)
+from t2igan_torch.utils.profiling import span
 
 
 EMA_DECAY = 0.999  # the G EMA's mixing rate
@@ -163,6 +164,13 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
     5. the G optimizer, then the EMA (``ema_decay``, the JAX step's
        argument of the same name and default).
 
+    Under a profiler steps 2-5 are spans (:mod:`t2igan_torch.utils.profiling`):
+    ``t2igan.gan.g_forward`` (both G forwards, each holding a
+    ``t2igan.g.stage`` per refinement stage), ``t2igan.gan.d_update``
+    (one per scale), ``t2igan.gan.g_loss``, ``t2igan.gan.g_backward`` (G's
+    gradients; the backward kernels launch from autograd's thread inside
+    it) and ``t2igan.gan.g_step`` (Adam, EMA); the text tower has none.
+
     ``dtype=torch.bfloat16`` runs the forwards under ``torch.autocast``
     (parameters, optimizer state and EMA stay f32); losses are f32.
 
@@ -233,7 +241,7 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
                                                    torch.cat([mask, mask2]))
         words1, words2 = words.chunk(2)
         sent1, sent2 = sent.chunk(2)
-        with amp(), global_batch_stats(mesh):
+        with span("t2igan.gan.g_forward"), amp(), global_batch_stats(mesh):
             f1, _, mu1, lv1 = gen(z, sent1, words1, mask == 0, eps1,
                                   return_attn=False, train=True)
             f2, _, mu2, lv2 = gen(z, sent2, words2, mask2 == 0, eps2,
@@ -244,69 +252,77 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
 
         metrics: Dict[str, torch.Tensor] = {}
         for i, (d, opt) in enumerate(zip(state.ds, state.d_opts)):
+            with span("t2igan.gan.d_update"):
+                with amp():
+                    x = torch.cat([images[i], f1[i].detach().float(),
+                                   f2[i].detach().float()])
+                    h_r, h_f1, h_f2 = d.features(
+                        x, update_spectral=True).chunk(3)
+                    uncond = d.uncond_head is not None
+                    logits = [d.cond(h_r, sent1), d.cond(h_f1, sent1),
+                              d.cond(h_r, wrong1),
+                              d.uncond(h_r) if uncond else None,
+                              d.uncond(h_f1) if uncond else None,
+                              d.cond(h_r, sent2), d.cond(h_f2, sent2),
+                              d.cond(h_r, wrong2),
+                              d.uncond(h_r) if uncond else None,
+                              d.uncond(h_f2) if uncond else None]
+                loss1, aux = discriminator_loss(*logits[:5])
+                loss2, _ = discriminator_loss(*logits[5:])
+                d_loss = loss1 + loss2
+                params = [p for p in d.parameters() if p.requires_grad]
+                for p, g in zip(params, torch.autograd.grad(d_loss, params)):
+                    p.grad = g
+                mesh.all_reduce_grads_(params)
+                opt.step()
+                metrics[f"d_loss{i}"] = d_loss.detach()
+                metrics[f"real_acc{i}"] = aux["real_acc"].detach()
+                metrics[f"fake_acc{i}"] = aux["fake_acc"].detach()
+
+        with span("t2igan.gan.g_loss"):
+            sent12 = torch.cat([sent1, sent2])
+            adv = 0.0
+            for i, d in enumerate(state.ds):
+                with amp():
+                    h = d.features(torch.cat([f1[i], f2[i]]))
+                    cond = d.cond(h, sent12)
+                    uncond = (d.uncond(h) if d.uncond_head is not None
+                              else None)
+                adv = adv + 2.0 * generator_adv_loss(cond, uncond)
             with amp():
-                x = torch.cat([images[i], f1[i].detach().float(),
-                               f2[i].detach().float()])
-                h_r, h_f1, h_f2 = d.features(x, update_spectral=True).chunk(3)
-                uncond = d.uncond_head is not None
-                logits = [d.cond(h_r, sent1), d.cond(h_f1, sent1),
-                          d.cond(h_r, wrong1),
-                          d.uncond(h_r) if uncond else None,
-                          d.uncond(h_f1) if uncond else None,
-                          d.cond(h_r, sent2), d.cond(h_f2, sent2),
-                          d.cond(h_r, wrong2),
-                          d.uncond(h_r) if uncond else None,
-                          d.uncond(h_f2) if uncond else None]
-            loss1, aux = discriminator_loss(*logits[:5])
-            loss2, _ = discriminator_loss(*logits[5:])
-            d_loss = loss1 + loss2
-            params = [p for p in d.parameters() if p.requires_grad]
-            for p, g in zip(params, torch.autograd.grad(d_loss, params)):
+                resized = resize_nearest(torch.cat([f1[-1], f2[-1]]),
+                                         clip_size)
+                subr12, img12 = clip.encode_image_verbose(resized)
+            regions1, regions2 = subr12[:, 1:].float().chunk(2)
+            cnn1, cnn2 = img12.float().chunk(2)
+            regions1, regions2 = live(regions1), live(regions2)
+            cnn1, cnn2 = live(cnn1), live(cnn2)
+            words1, words2 = rows(words1), rows(words2)
+            sent1, sent2 = rows(sent1), rows(sent2)
+            mask, mask2, cls = rows(mask), rows(mask2), rows(cls)
+
+            def damsm_terms(regions, img_code, words, mask, sent):
+                wl0, wl1 = words_loss(regions, words, cls, mask > 0, g1, g2,
+                                      g3)
+                sl0, sl1 = sent_loss(img_code, sent, cls, g3)
+                return (wl0 + wl1) * lam, (sl0 + sl1) * lam
+
+            w_a, s_a = damsm_terms(regions1, cnn1, words1, mask, sent1)
+            w_b, s_b = damsm_terms(regions2, cnn2, words2, mask2, sent2)
+            kl = kl_loss(mu1, lv1) + kl_loss(mu2, lv2)
+            contrast = 0.2 * nt_xent_loss(l2_normalize(cnn1),
+                                          l2_normalize(cnn2), 0.5)
+            total = adv + w_a + w_b + s_a + s_b + kl + contrast
+
+        with span("t2igan.gan.g_backward"):
+            params = [p for p in gen.parameters() if p.requires_grad]
+            for p, g in zip(params, torch.autograd.grad(total, params)):
                 p.grad = g
             mesh.all_reduce_grads_(params)
-            opt.step()
-            metrics[f"d_loss{i}"] = d_loss.detach()
-            metrics[f"real_acc{i}"] = aux["real_acc"].detach()
-            metrics[f"fake_acc{i}"] = aux["fake_acc"].detach()
-
-        sent12 = torch.cat([sent1, sent2])
-        adv = 0.0
-        for i, d in enumerate(state.ds):
-            with amp():
-                h = d.features(torch.cat([f1[i], f2[i]]))
-                cond = d.cond(h, sent12)
-                uncond = d.uncond(h) if d.uncond_head is not None else None
-            adv = adv + 2.0 * generator_adv_loss(cond, uncond)
-        with amp():
-            resized = resize_nearest(torch.cat([f1[-1], f2[-1]]), clip_size)
-            subr12, img12 = clip.encode_image_verbose(resized)
-        regions1, regions2 = subr12[:, 1:].float().chunk(2)
-        cnn1, cnn2 = img12.float().chunk(2)
-        regions1, regions2 = live(regions1), live(regions2)
-        cnn1, cnn2 = live(cnn1), live(cnn2)
-        words1, words2 = rows(words1), rows(words2)
-        sent1, sent2 = rows(sent1), rows(sent2)
-        mask, mask2, cls = rows(mask), rows(mask2), rows(cls)
-
-        def damsm_terms(regions, img_code, words, mask, sent):
-            wl0, wl1 = words_loss(regions, words, cls, mask > 0, g1, g2, g3)
-            sl0, sl1 = sent_loss(img_code, sent, cls, g3)
-            return (wl0 + wl1) * lam, (sl0 + sl1) * lam
-
-        w_a, s_a = damsm_terms(regions1, cnn1, words1, mask, sent1)
-        w_b, s_b = damsm_terms(regions2, cnn2, words2, mask2, sent2)
-        kl = kl_loss(mu1, lv1) + kl_loss(mu2, lv2)
-        contrast = 0.2 * nt_xent_loss(l2_normalize(cnn1),
-                                      l2_normalize(cnn2), 0.5)
-        total = adv + w_a + w_b + s_a + s_b + kl + contrast
-
-        params = [p for p in gen.parameters() if p.requires_grad]
-        for p, g in zip(params, torch.autograd.grad(total, params)):
-            p.grad = g
-        mesh.all_reduce_grads_(params)
-        state.g_opt.step()
-        ema_update(state.gen_ema, gen, ema_decay)
-        state.step += 1
+        with span("t2igan.gan.g_step"):
+            state.g_opt.step()
+            ema_update(state.gen_ema, gen, ema_decay)
+            state.step += 1
 
         metrics["g_loss"] = total.detach()
         for name, val in (("g_adv", adv), ("w_loss", w_a + w_b),
@@ -336,19 +352,24 @@ def make_sampler(cfg: Config, clip: ClipWithRegionHead,
     attention maps [B, H, W, L] (f32) of each refinement stage, and the
     read runs as plain einsums, as the JAX sampler's does.  ``cfg`` is
     taken for the JAX sampler's signature; the modules carry their widths.
+    Under a profiler a call shows the spans ``t2igan.sampler.text`` and
+    ``t2igan.sampler.generator`` (with a ``t2igan.g.stage`` per refinement
+    stage).
     """
     del cfg
     device = next(gen.parameters()).device
 
     def sample(ids, mask, z, eps):
         with torch.inference_mode():
-            ids = torch.as_tensor(ids, device=device)
-            mask = torch.as_tensor(mask, device=device)
-            words, sent = clip.encode_text_verbose(ids, mask)
-            fakes, atts, _, _ = gen(torch.as_tensor(z, device=device), sent,
-                                    words, mask == 0,
-                                    torch.as_tensor(eps, device=device),
-                                    return_attn=return_attn)
+            with span("t2igan.sampler.text"):
+                ids = torch.as_tensor(ids, device=device)
+                mask = torch.as_tensor(mask, device=device)
+                words, sent = clip.encode_text_verbose(ids, mask)
+            with span("t2igan.sampler.generator"):
+                fakes, atts, _, _ = gen(
+                    torch.as_tensor(z, device=device), sent, words,
+                    mask == 0, torch.as_tensor(eps, device=device),
+                    return_attn=return_attn)
         return (fakes, atts) if return_attn else fakes
 
     return sample
