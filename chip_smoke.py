@@ -23,6 +23,12 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    border, and the bf16 kernels' tile edges: 96x40, a ragged 24x100,
    H = 1, batch 1 at 128^2 with the head), and K3 on folded weights
    against the port's eval module chain;
+2b. holds the train-mode BN kernels (``csrc/batchnorm.cu``) to their plain
+   stages at the 15 BN shapes of the train cell's G forward (batch 16),
+   bf16 and f32: outputs, running statistics and the gradients of x,
+   weight, bias and the residual through ``BatchNormTrain``, and a clean
+   ``cudaGetLastError``; then times each shape's forward and backward
+   beside the least bytes a fused layer moves and the plain stages;
 3. drives the sampler: ``t2igan_torch.generate.generate`` at the widths of
    ``t2igan_torch/configs/eval_clip_bird.yml`` (full ViT-B/32 text tower,
    weights from a seed) on caption requests at the YAML's batch of 10, and
@@ -671,6 +677,184 @@ def check_reschain_cases(cases, seed=200) -> float:
     return worst
 
 
+def bn_shapes(b=TRAIN_BATCH, gf_dim=64, r_num=2, stages=2):
+    """(name, input shape, epilogue) of the train-mode BNs of one G forward
+    at clip_bird_dmgan.yml's widths: InitStageG's fc BN and 4 UpBlocks,
+    then each stage's ResBlocks (bn1 + GLU, bn2 + residual) and UpBlock."""
+    ngf = gf_dim * 16
+    out = [("init.fc", (b, ngf * 32), "glu")]
+    out += [(f"init.up{i}", (b, ngf >> i, 8 << i, 8 << i), "glu")
+            for i in range(4)]
+    for s in range(stages):
+        side = 64 << s
+        for r in range(r_num):
+            out += [(f"s{s + 1}.res{r}.bn1", (b, 4 * gf_dim, side, side),
+                     "glu"),
+                    (f"s{s + 1}.res{r}.bn2", (b, 2 * gf_dim, side, side),
+                     "residual")]
+        out.append((f"s{s + 1}.up", (b, 2 * gf_dim, 2 * side, 2 * side),
+                    "glu"))
+    return out
+
+
+def check_batchnorm(card, results, iters=3):
+    """Phase 2b: the train-mode BN kernels (csrc/batchnorm.cu) against their
+    plain stages on the card at the 15 BN shapes of the train cell's G
+    forward (batch 16), bf16 and f32: outputs, running statistics, the
+    four gradients through ``BatchNormTrain`` against the plain stages
+    composed the same way, and a clean ``cudaGetLastError``; then each
+    shape's device time (forward: stats + apply; backward: sums + dx)
+    beside the least bytes a fused layer moves (x read once) and the
+    plain stages' time.  A step runs each shape twice (two G forwards)."""
+    import torch
+
+    from t2igan_torch.ops.kernels import batchnorm as kbn
+
+    worst = 0.0
+    totals = {}
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = dtype_name(dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
+        tot = totals.setdefault(name, {"fw": 0.0, "bw": 0.0, "plain": 0.0,
+                                       "bound": 0.0, "host_us": 0.0})
+        for i, (label, shape, epi) in enumerate(bn_shapes()):
+            g = torch.Generator(device="cuda").manual_seed(300 + i)
+            c = shape[1]
+            fmt = (torch.channels_last if len(shape) == 4
+                   else torch.contiguous_format)
+
+            def rand(*s, scale=1.0, shift=0.0):
+                return (torch.randn(s, generator=g, device="cuda") * scale
+                        + shift)
+
+            # Per-channel scale in [0.5, 1.5], shift N(0, 1): a batch
+            # variance well above the f32 rounding of E[x^2] - mean^2.
+            per_channel = [1, c] + [1] * (len(shape) - 2)
+            x = (rand(*shape) * (torch.rand(per_channel, generator=g,
+                                            device="cuda") + 0.5)
+                 + rand(*per_channel))
+            x[:, 0] = 0.75  # a constant channel: the clamp
+            x = x.to(dtype).contiguous(memory_format=fmt)
+            weight = rand(c, scale=0.1, shift=1.0)
+            bias = rand(c, scale=0.1)
+            res = (rand(*shape).to(dtype).contiguous(memory_format=fmt)
+                   if epi == "residual" else None)
+            glu = epi == "glu"
+            out_shape = ((shape[0], c // 2) + tuple(shape[2:]) if glu
+                         else shape)
+            dout = rand(*out_shape).to(dtype).contiguous(memory_format=fmt)
+            got, want = {}, {}
+            for side, store in (("kernel", got), ("plain", want)):
+                rm = torch.zeros(c, device="cuda")
+                rv = torch.ones(c, device="cuda")
+                xs = x.clone().requires_grad_(True)
+                w = weight.clone().requires_grad_(True)
+                bb = bias.clone().requires_grad_(True)
+                rs = None if res is None else res.clone().requires_grad_(True)
+                if side == "kernel":
+                    y = kbn.batch_norm_train(xs, w, bb, rm, rv, 1e-5, glu=glu,
+                                             residual=rs)
+                    grads = torch.autograd.grad(
+                        y, [xs, w, bb] + ([rs] if rs is not None else []),
+                        dout)
+                else:
+                    rows = kbn.as_rows(xs.detach())
+                    st = kbn.forward_stats_plain(rows)
+                    y = kbn.from_rows(kbn.forward_apply_plain(
+                        rows, st, w.detach(), bb.detach(), rm, rv, 1e-5, glu,
+                        None if rs is None else kbn.as_rows(rs.detach())), xs)
+                    d = kbn.as_rows(dout)
+                    sums, dw, db = kbn.backward_sums_plain(
+                        rows, d, st, w.detach(), bb.detach(), 1e-5, glu)
+                    dx = kbn.from_rows(kbn.backward_dx_plain(
+                        rows, d, st, w.detach(), bb.detach(), sums, 1e-5,
+                        rows.shape[0], glu), xs)
+                    grads = [dx, dw, db] + ([dout] if rs is not None else [])
+                store.update(out=y.detach().float(), running_mean=rm,
+                             running_var=rv, dx=grads[0].float(),
+                             dweight=grads[1], dbias=grads[2])
+                if rs is not None:
+                    store["dresidual"] = grads[3].float()
+            torch.cuda.synchronize()
+            err = kbn.last_error()
+            if err != 0:
+                raise RuntimeError(f"batchnorm {label} {name}: "
+                                   f"cudaGetLastError {err}")
+            line = []
+            for key in want:
+                a, r = got[key], want[key]
+                diff = (a - r).abs()
+                scale = r.abs().max().item() + 1e-12
+                # Sums over up to 2^20 rows in another order: 1e-4 of the
+                # largest entry (f32 sums of 2^20 terms of either sign move
+                # by ~1e-5 of it; a wrong kernel by 1e-2 or more); and a
+                # flip of the last bf16 bit where the two f32 values round
+                # to neighbours (outputs, dx in bf16).
+                tol = 1e-4 * scale + (BF16_STEP * r.abs()
+                                      if dtype == torch.bfloat16 and key in
+                                      ("out", "dx", "dresidual") else 0.0)
+                bad = (diff > tol).sum().item()
+                rel = diff.max().item() / scale
+                if dtype == torch.float32:
+                    worst = max(worst, diff.max().item())
+                line.append(f"{key} {rel:.2e}{'' if bad == 0 else ' FAIL'}")
+                if bad:
+                    failures.append(f"batchnorm {label} {name} {key}: {bad} "
+                                    f"entries beyond the bound, largest "
+                                    f"{diff.max().item():.3e}")
+            # Times (device, queued behind a sleep; host a call).
+            rows = kbn.as_rows(x)
+            d = kbn.as_rows(dout)
+            rsr = None if res is None else kbn.as_rows(res)
+            rm = torch.zeros(c, device="cuda")
+            rv = torch.ones(c, device="cuda")
+            st = kbn.forward_stats(rows)
+            sums = kbn.backward_sums(rows, d, st, weight, bias, 1e-5, glu)[0]
+            fw, host = queued_ms(lambda: kbn.forward_apply(
+                rows, kbn.forward_stats(rows), weight, bias, rm, rv, 1e-5,
+                glu, rsr), iters)
+            bw, _ = queued_ms(lambda: kbn.backward_dx(
+                rows, d, st, weight, bias,
+                kbn.backward_sums(rows, d, st, weight, bias, 1e-5, glu)[0],
+                1e-5, rows.shape[0], glu), iters)
+            plain, _ = queued_ms(lambda: (kbn.forward_apply_plain(
+                rows, kbn.forward_stats_plain(rows), weight, bias, rm, rv,
+                1e-5, glu, rsr), kbn.backward_dx_plain(
+                rows, d, st, weight, bias, sums, 1e-5, rows.shape[0], glu),
+                kbn.backward_sums_plain(rows, d, st, weight, bias, 1e-5,
+                                        glu)), iters)
+            n = x.numel()
+            # Least bytes of a fused layer, x read once a direction: GLU
+            # x + out forward, x + dout + dx backward; residual x + res +
+            # out, x + dout + dx.
+            nbytes = e * n * ((1.5 + 2.5) if glu else (3 + 3))
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            for k, v in (("fw", fw), ("bw", bw), ("plain", plain),
+                         ("bound", bound)):
+                tot[k] += 2 * v
+            tot["host_us"] += host
+            print(f"[{card}] batchnorm {name} {label} {tuple(shape)} {epi}: "
+                  f"kernel fw {fw:.4f} + bw {bw:.4f} ms (host {host:.1f} us a "
+                  f"forward), plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB), {bound / (fw + bw):.1%} of bound; "
+                  f"max rel gap " + ", ".join(line))
+            del x, dout, res, got, want, rows, d
+        print(f"[{card}] batchnorm {name}, a train step's 30 BNs (b16): "
+              f"kernel fw {tot['fw']:.3f} + bw {tot['bw']:.3f} = "
+              f"{tot['fw'] + tot['bw']:.3f} ms, plain {tot['plain']:.3f} ms, "
+              f"bound {tot['bound']:.3f} ms (bytes), "
+              f"{tot['bound'] / (tot['fw'] + tot['bw']):.1%} of bound; host "
+              f"{tot['host_us'] / 15:.1f} us a forward (stats + apply)")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    bf = totals["bf16"]
+    results["batchnorm"].update(
+        max_abs_err=worst,
+        ms=bf["fw"] + bf["bw"], plain_ms=bf["plain"], bound_ms=bf["bound"],
+        bound_by="bytes", library_ms=None)
+
+
 def drive_sampler(name="eval_clip_bird.yml"):
     """Phase 3 (10a with ``eval_clip_coco.yml``): the sampler at the full
     width of the config ``name`` through the generate entry point."""
@@ -937,11 +1121,13 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
     """Phase 4a (10a with ``clip_coco_dmgan.yml``): 3 bf16 steps of the
     train_gan trainer at the full width of the config ``name``, the YAML's
     batch of 4, with GAN.FUSED_TAIL set: the fused tail is eval only, so
-    no step may launch K3.  ``results`` (phase 4a's) takes K1's and K2's
-    launches of the main path."""
+    no step may launch K3, and each of the step's two G forwards launches
+    the four train BN kernels once a BN.  ``results`` (phase 4a's) takes
+    K1's, K2's and the BN kernels' launches of the main path."""
     import torch
 
     from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.ops.kernels import batchnorm as kbn
     from t2igan_torch.train.train_gan import CondGanTrainer
 
     cfg = fused_cfg(True, name)
@@ -961,15 +1147,20 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
     first = {k: t.detach().clone() for k, t in snap().items()}
     for kernel in list(LAUNCHES):
         LAUNCHES[kernel] = 0
+    kbn.BN_LAUNCHES.clear()
     t0 = time.perf_counter()
     per_step = []
+    bn_per_step = []
     for _ in range(3):
         before = {k: t.detach().clone() for k, t in snap().items()}
         counts = dict(LAUNCHES)
+        bn_counts = dict(kbn.BN_LAUNCHES)
         metrics = trainer.train_steps(1)
         torch.cuda.synchronize()
         per_step.append({k: LAUNCHES[k] - counts.get(k, 0)
                          for k in LAUNCHES})
+        bn_per_step.append({k: kbn.BN_LAUNCHES[k] - bn_counts.get(k, 0)
+                            for k in kbn.BN_LAUNCHES})
         bad = [k for k, val in metrics.items() if not math.isfinite(val)]
         if bad:
             raise AssertionError(f"non-finite metrics {bad}")
@@ -977,17 +1168,25 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
     if results is not None:
         for kernel in ("memory_read_fwd", "memory_read_bwd"):
             results[kernel]["launches"] = LAUNCHES[kernel]
+        results["batchnorm"]["launches"] = dict(kbn.BN_LAUNCHES)
     print(f"train path: train_gan, {name} full width (R_NUM "
           f"{cfg.GAN.R_NUM}, LAMBDA {cfg.TRAIN.SMOOTH.LAMBDA}) with "
           f"GAN.FUSED_TAIL, batch "
           f"{cfg.TRAIN.BATCH_SIZE}, bf16, 3 steps in {seconds:.2f} s "
           f"(set-up {setup:.2f} s); launches {dict(LAUNCHES)}, per step "
-          f"{per_step}; last metrics "
+          f"{per_step}; BN launches per step {bn_per_step}; last metrics "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
     if any(c.get("memory_read_fwd") != 4 or c.get("memory_read_bwd") != 4
            or c.get("reschain", 0) != 0 for c in per_step):
         raise AssertionError("expected 4 memory_read_fwd, 4 memory_read_bwd "
                              "and 0 reschain launches per train step")
+    # A G forward: the fc BN, 4 UpBlocks, and per refinement stage R_NUM
+    # ResBlocks of 2 BNs and an UpBlock; a step runs two G forwards.
+    bns = 2 * (1 + 4 + (cfg.TREE.BRANCH_NUM - 1) * (2 * cfg.GAN.R_NUM + 1))
+    want_bn = {k: bns for k in ("stats", "apply", "bwd_reduce", "bwd_dx")}
+    if any(c != want_bn for c in bn_per_step):
+        raise AssertionError(f"expected {want_bn} BN launches per train "
+                             f"step, got {bn_per_step}")
     after = {k: t.detach() for k, t in snap().items()}
     moved = {k: (after[k] - first[k]).abs().max().item() for k in first}
     print("train path: max change over 3 steps "
@@ -3742,7 +3941,12 @@ def main() -> int:
         "reschain": {
             "name": "reschain", "route": "cuda",
             "source": "t2igan_torch/csrc/reschain.cu",
-            "replaces": "t2igan/ops/pallas/reschain.py:176"}}
+            "replaces": "t2igan/ops/pallas/reschain.py:176"},
+        "batchnorm": {
+            "name": "batchnorm", "route": "cuda",
+            "source": "t2igan_torch/csrc/batchnorm.cu",
+            "replaces": "none (train-mode BN; t2igan/ops/image.py:242 "
+                        "phase_batch_stats)"}}
     def timed(fn, *args):
         """fn(*args), its wall time printed: the script must end within
         its time limit."""
@@ -3755,6 +3959,7 @@ def main() -> int:
     timed(check_memory_read, results)
     timed(check_memory_read_bwd, results)
     timed(check_reschain, results)
+    timed(check_batchnorm, card, results)
     timed(drive_sampler)
     timed(drive_fused_sampler, results)
     timed(drive_geneval)

@@ -3,9 +3,10 @@
 Port of :mod:`t2igan.models.generator`.  With ``train=False`` batch
 normalisation uses its running statistics; with ``train=True`` it
 normalises with the batch statistics and updates the running ones as flax
-does (:class:`BatchNorm`), and the memory read passes gradients through
-the backward kernel.  The conditioning noise ``ca_eps`` always comes from
-the caller.
+does, through the fused BN kernels with the GLU or residual add that
+follows each BN (:class:`BatchNorm`), and the memory read passes
+gradients through the backward kernel.  The conditioning noise ``ca_eps``
+always comes from the caller.
 
 Layout: feature maps are NCHW in ``torch.channels_last`` memory, so
 ``h.permute(0, 2, 3, 1)`` hands the memory-read kernel a contiguous
@@ -38,8 +39,7 @@ from torch import nn
 
 from t2igan_torch.ops.attention import memory_read
 from t2igan_torch.ops.image import upsample_nearest_2x
-from t2igan_torch.ops.kernels import reschain
-from t2igan_torch.parallel.mesh import sum_autograd
+from t2igan_torch.ops.kernels import batchnorm, reschain
 from t2igan_torch.utils.profiling import span
 
 UPBLOCK_VARIANTS = ("dilated", "naive", "subpixel")
@@ -82,23 +82,26 @@ def global_batch_stats(mesh):
 
 class BatchNorm(nn.Module):
     """Batch normalisation over dim 1 with eps 1e-5 and momentum 0.9, as
-    the JAX package's flax ``nn.BatchNorm``.
+    the JAX package's flax ``nn.BatchNorm``, with the GLU over the channel
+    halves (``glu``) or ``+ residual`` that follows it in the blocks.
 
     ``train=False``: ``(x - running_mean) / sqrt(running_var + eps) *
-    weight + bias`` in one ``F.batch_norm`` pass.  ``train=True``: the
-    batch mean and the biased variance ``max(0, E[x^2] - E[x]^2)`` in f32
-    (flax's ``_compute_stats``) normalise ``x``, and the running statistics
-    become ``0.9 * running + 0.1 * batch``.  ``F.batch_norm(training=True)``
-    would put the unbiased variance, n / (n - 1) larger, into
-    ``running_var``.  The output has ``x``'s dtype.
+    weight + bias`` in one ``F.batch_norm`` pass, then the GLU or the add.
+    ``train=True``: :func:`t2igan_torch.ops.kernels.batchnorm.
+    batch_norm_train`, the fused kernels on the card (their plain versions
+    on the CPU): the batch mean and the biased variance ``max(0, E[x^2] -
+    E[x]^2)`` in f32 (flax's ``_compute_stats``) normalise ``x``, and the
+    running statistics become ``0.9 * running + 0.1 * batch``.
+    ``F.batch_norm(training=True)`` would put the unbiased variance, n /
+    (n - 1) larger, into ``running_var``.  The output has ``x``'s dtype.
 
     Inside :func:`global_batch_stats` the train-mode statistics are those
     of the global batch (PARITY D10): each rank's mean and ``E[x^2]``,
-    weighted by its share ``n / N`` of the rows, are summed over ranks in
-    f32 by an autograd all_reduce, whose backward sums the statistics'
-    gradients over ranks.  ``torch.nn.SyncBatchNorm`` would put the
-    unbiased variance into ``running_var`` (ROADMAP F3).  At a share of 1
-    (one rank) the arithmetic is the single-process one, bit for bit.
+    weighted by its share ``1 / W`` of the rows, are summed over ranks in
+    f32 by one all_reduce, and the backward's two per-channel sums by
+    another.  ``torch.nn.SyncBatchNorm`` would put the unbiased variance
+    into ``running_var`` (ROADMAP F3).  At one rank the arithmetic is the
+    single-process one, bit for bit.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -109,29 +112,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False,
-                                eps=self.eps)
-        dims = [d for d in range(x.dim()) if d != 1]
-        xf = x.float()
-        mean = xf.mean(dims)
-        mesh = _STATS_MESH.get()
-        if mesh is None or not mesh.distributed:
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
-        else:
-            # Rows are split evenly (ranks_for_batch), so n / N = 1 / W.
-            share = torch.stack([mean, (xf * xf).mean(dims)]) / mesh.world
-            mean, mean_sq = sum_autograd(share, mesh.group).unbind()
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-            self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
-        shape = [1, -1] + [1] * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False, glu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if train:
+            mesh = _STATS_MESH.get()
+            # Rows are split evenly (ranks_for_batch), so each share is 1 / W.
+            dist = mesh is not None and mesh.distributed
+            return batchnorm.batch_norm_train(
+                x, self.weight, self.bias, self.running_mean, self.running_var,
+                self.eps, glu=glu, residual=residual,
+                group=mesh.group if dist else None,
+                world=mesh.world if dist else 1)
+        y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                         self.bias, training=False, eps=self.eps)
+        if glu:
+            y = F.glu(y, dim=1)
+        return y if residual is None else residual + y
 
     def fold(self):
         """Eval mode as an f32 per-channel affine ``(scale, shift)``:
@@ -155,7 +151,7 @@ class UpBlock(nn.Module):
         self.bn = BatchNorm(2 * features)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return glu(self.bn(self.conv(upsample_nearest_2x(x)), train))
+        return self.bn(self.conv(upsample_nearest_2x(x)), train, glu=True)
 
     def fold(self):
         """(kernel HWIO, scale, shift) of the eval-mode block."""
@@ -173,8 +169,8 @@ class ResBlock(nn.Module):
         self.bn2 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h = glu(self.bn1(self.conv1(x), train))
-        return x + self.bn2(self.conv2(h), train)
+        h = self.bn1(self.conv1(x), train, glu=True)
+        return self.bn2(self.conv2(h), train, residual=x)
 
     def fold(self):
         """(k1, scale1, shift1, k2, scale2, shift2) of the eval-mode block,
@@ -212,8 +208,8 @@ class InitStageG(nn.Module):
 
     def forward(self, z_code: torch.Tensor, c_code: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        x = glu(self.bn(self.fc(torch.cat([c_code, z_code], dim=-1)), train),
-                dim=-1)
+        x = self.bn(self.fc(torch.cat([c_code, z_code], dim=-1)), train,
+                    glu=True)
         # Channel-major, as torch's view(B, ngf, 4, 4): already NCHW.
         x = x.reshape(x.shape[0], self.ngf, 4, 4)
         x = x.contiguous(memory_format=torch.channels_last)

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Every CUDA source of the port; the first load builds them all at once.
-SOURCES = ("memory_read", "memory_read_bwd", "reschain")
+SOURCES = ("memory_read", "memory_read_bwd", "reschain", "batchnorm")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

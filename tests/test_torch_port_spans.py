@@ -43,6 +43,9 @@ CFG = cfg_from_dict({
     "TEXT": {"EMBEDDING_DIM": 32, "WORDS_NUM": WORDS},
     "TRAIN": {"BATCH_SIZE": B}})
 STAGES = CFG.TREE.BRANCH_NUM - 1
+# Train-mode BNs of one G forward: InitStageG's fc and 4 UpBlocks, then a
+# stage's ResBlocks (2 each) and UpBlock.
+BNS = 1 + 4 + STAGES * (2 * CFG.GAN.R_NUM + 1)
 
 # Spans a call emits, by path (fused-tail sampler: operands already laid
 # out), and the span each one lies inside.
@@ -50,14 +53,18 @@ EXPECTED = {
     "gan": {"t2igan.gan.g_forward": 1,
             "t2igan.gan.d_update": CFG.TREE.BRANCH_NUM,
             "t2igan.gan.g_loss": 1, "t2igan.gan.g_backward": 1,
-            "t2igan.gan.g_step": 1, "t2igan.g.stage": 2 * STAGES},
+            "t2igan.gan.g_step": 1, "t2igan.g.stage": 2 * STAGES,
+            "t2igan.kernel.batchnorm": 2 * BNS,
+            "t2igan.kernel.batchnorm_bwd": 2 * BNS},
     "sampler": {"t2igan.sampler.text": 1, "t2igan.sampler.generator": 1,
                 "t2igan.g.stage": STAGES, "t2igan.kernel.reschain": STAGES},
     "rank": {"t2igan.rank.put": 1, "t2igan.rank.image": 1,
              "t2igan.rank.text": 1},
 }
 NESTED = {
-    "gan": {"t2igan.g.stage": "t2igan.gan.g_forward"},
+    "gan": {"t2igan.g.stage": "t2igan.gan.g_forward",
+            "t2igan.kernel.batchnorm": "t2igan.gan.g_forward",
+            "t2igan.kernel.batchnorm_bwd": "t2igan.gan.g_backward"},
     "sampler": {"t2igan.g.stage": "t2igan.sampler.generator",
                 "t2igan.kernel.reschain": "t2igan.g.stage"},
     "rank": {},
@@ -193,6 +200,23 @@ def test_layout_span_once_a_stage_on_the_first_call_only(traced):
     for name, start, end, _ in first:
         if name == "t2igan.kernel.layout":
             assert any(s[1] <= start and end <= s[2] for s in stages)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_a_g_forward_opens_the_batchnorm_span_once_a_train_bn(train):
+    """One G forward opens ``t2igan.kernel.batchnorm`` once for each
+    train-mode BN (the fused kernel pair), and never in eval, where BN is
+    ``F.batch_norm`` or folded into the fused tail."""
+    _, gen, _, served = _models()
+    x = _inputs()
+    b = x["batch"]
+    t = torch.as_tensor
+    words = torch.randn(B, WORDS, CFG.TEXT.EMBEDDING_DIM)
+    model = gen if train else served
+    _, spans = _traced(lambda: model(
+        t(x["z"]), torch.randn(B, CFG.TEXT.EMBEDDING_DIM), words,
+        t(b["mask"]) == 0, t(x["eps"]), return_attn=False, train=train))
+    assert _counts(spans)["t2igan.kernel.batchnorm"] == (BNS if train else 0)
 
 
 @pytest.mark.parametrize("path", PATHS)
