@@ -47,8 +47,10 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    training ignores) takes 3 bf16 steps at the YAML's batch of 4; it
    checks finite losses, that G, the discriminators, their spectral
    vectors and the EMA moved, the EMA rule, and 4 K1, 4 K2 and 0 K3
-   launches per step; then holds one f32 step on the card to the same
-   step on the CPU at batch 2;
+   launches per step, and 4 BN launches a BN, as counted and, for a
+   replay of the step's CUDA graphs, by kernel name in its profiler trace
+   (in a process of its own); then holds one f32 step on the card to the
+   same step on the CPU at batch 2;
 4b. drives DAMSM fine-tuning: the ``pretrain_damsm`` trainer at the full
    width of ``configs/damsm/bird.yml`` (ViT-B/32, batch 48, 224 px, 30
    tokens) for 2 epochs in bf16; it checks finite metrics, that both
@@ -61,6 +63,18 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    step, the JAX trainer's keys);
 4c. holds one f32 DAMSM step on the card to the CPU at batch 4 (metrics
    and every gradient), then both optimizers fed the same gradients;
+4d. holds the GAN step's CUDA graphs to its eager body: two trainers from
+   one seed take 6 steps on the same batches, one through ``step_fn``
+   (eager, capture, then replays: ``GAN_GRAPHS`` 1 / 1 / 5), one through
+   ``step_fn.eager``, under PyTorch's deterministic algorithms; losses
+   every step, then parameters, Adam's moments and step counts, running
+   statistics and spectral vectors equal within 1e-6 of each tensor's
+   largest entry; 4 K1, 4 K2 and 4 BN launches a BN in every step, as
+   the wrappers count them (a replay's count copied from its capture); a
+   fused-tail sample of the trained EMA G equals one of its fresh
+   ``copy.deepcopy`` (the operand cache saw the replays); bf16 at
+   ``clip_bird_dmgan.yml`` width and f32 at ``clip_coco_dmgan.yml``'s
+   (R_NUM 3), each at its YAML's batch, then each path timed;
 6. (run before phase 5's timings) drives the train -> checkpoint ->
    evaluate loop: ``CondGanTrainer.train`` at the full width of
    ``configs/clip_bird_dmgan.yml``, 2 epochs in bf16 at batch 4 with a
@@ -139,7 +153,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  It imports
    replicated CLIP; (9e) the bf16 step at batch 16 with and without the
    one-rank NCCL group, in turns, and the two-rank gloo step, timed.
 
-It ends with a ``{"kernels": [...]}`` line, the card line and, last,
+It ends with a ``{"kernels": [...]}`` line (K1's, K2's and the BN
+kernels' ``launches``: those of a replayed step of phase 4's trainer, by
+name in its trace), the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the process
 exits non-zero; without a CUDA card it exits 1 and prints no result.
 """
@@ -269,6 +285,72 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The device kernels behind each count of ``LAUNCHES`` and
+# ``batchnorm.BN_LAUNCHES`` (K1 and K2 of either precision), by a part of
+# their names, mangled or not; K2's launch runs its reduce kernel too.
+KERNEL_NAMES = (
+    ("memory_read_fwd", ("memory_read_fwd_tc_kernel",
+                         "memory_read_fwd_f32_kernel")),
+    ("memory_read_bwd", ("memory_read_bwd_tc_kernel",
+                         "memory_read_bwd_f32_kernel")),
+    ("memory_read_bwd_reduce", ("memory_read_bwd_reduce",)),
+    ("stats", ("bn_fw_stats_kernel",)), ("apply", ("bn_fw_apply_kernel",)),
+    ("bwd_reduce", ("bn_bw_reduce_kernel",)), ("bwd_dx", ("bn_bw_dx_kernel",)))
+
+
+def profiled_launches(fn) -> tuple:
+    """``fn()`` once under torch.profiler: the K1, K2 and BN kernels the
+    card ran, counted by name in the trace, as a dict in the keys of
+    ``LAUNCHES`` and one in those of ``BN_LAUNCHES``: what the card ran,
+    where the counters hold what a replayed graph's capture recorded.
+    Raises where a K2 tile kernel ran without its reduce."""
+    from t2igan_torch.profile_step import trace_kernels
+
+    _, kernels = trace_kernels(fn, 1, cpu=False)
+    counts = {key: sum(any(n in e["name"] for n in names) for e in kernels)
+              for key, names in KERNEL_NAMES}
+    if counts.pop("memory_read_bwd_reduce") != counts["memory_read_bwd"]:
+        raise AssertionError("a K2 launch ran without its reduce kernel")
+    bn = ("stats", "apply", "bwd_reduce", "bwd_dx")
+    return ({k: v for k, v in counts.items() if k not in bn},
+            {k: counts[k] for k in bn})
+
+
+def replay_kernels(name: str) -> tuple:
+    """A bf16 ``CondGanTrainer`` at the full width of ``name`` and its
+    YAML's batch takes 3 steps (eager, then the capture of the step's CUDA
+    graphs, then a replay); the replay runs under torch.profiler.  Returns
+    :func:`profiled_launches`' counts of it."""
+    import torch
+
+    from t2igan_torch.train import graphs
+    from t2igan_torch.train.train_gan import CondGanTrainer
+
+    trainer = CondGanTrainer(fused_cfg(True, name), "cuda", torch.bfloat16,
+                             seed=0)
+    trainer.train_steps(2)
+    runs = graphs.GAN_GRAPHS.copy()
+    counts = profiled_launches(lambda: trainer.train_steps(1))
+    if graphs.GAN_GRAPHS - runs != {"replay": 1}:
+        raise AssertionError("the profiled step was no replay: GAN_GRAPHS "
+                             f"{dict(graphs.GAN_GRAPHS)}")
+    return counts
+
+
+def replay_kernels_apart(name: str) -> tuple:
+    """:func:`replay_kernels` in a process of its own, whose first profiler
+    session it is: profiling the graphs in this process left a later
+    session here (phase 5e's) tracing no kernel."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke as c; "
+         "print(json.dumps(c.replay_kernels(sys.argv[1])))", name],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError("replay_kernels failed:\n" + proc.stderr[-3000:])
+    return tuple(json.loads(proc.stdout.strip().splitlines()[-1]))
 
 
 def queued_ms(fn, iters: int, warmup: int = 3):
@@ -1122,12 +1204,17 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
     train_gan trainer at the full width of the config ``name``, the YAML's
     batch of 4, with GAN.FUSED_TAIL set: the fused tail is eval only, so
     no step may launch K3, and each of the step's two G forwards launches
-    the four train BN kernels once a BN.  ``results`` (phase 4a's) takes
-    K1's, K2's and the BN kernels' launches of the main path."""
+    the four train BN kernels once a BN.  The first step runs eagerly, the
+    second captures the step's CUDA graphs and the third replays them, so
+    the counters' third step is copied from the capture: a replayed step's
+    K1, K2 and BN kernels are also counted by name in its profiler trace
+    (:func:`replay_kernels_apart`) and held to the same counts, and
+    ``results`` (phase 4a's) takes those."""
     import torch
 
     from t2igan_torch.ops.kernels import LAUNCHES
     from t2igan_torch.ops.kernels import batchnorm as kbn
+    from t2igan_torch.train import graphs
     from t2igan_torch.train.train_gan import CondGanTrainer
 
     cfg = fused_cfg(True, name)
@@ -1165,16 +1252,13 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
         if bad:
             raise AssertionError(f"non-finite metrics {bad}")
     seconds = time.perf_counter() - t0
-    if results is not None:
-        for kernel in ("memory_read_fwd", "memory_read_bwd"):
-            results[kernel]["launches"] = LAUNCHES[kernel]
-        results["batchnorm"]["launches"] = dict(kbn.BN_LAUNCHES)
     print(f"train path: train_gan, {name} full width (R_NUM "
           f"{cfg.GAN.R_NUM}, LAMBDA {cfg.TRAIN.SMOOTH.LAMBDA}) with "
           f"GAN.FUSED_TAIL, batch "
           f"{cfg.TRAIN.BATCH_SIZE}, bf16, 3 steps in {seconds:.2f} s "
-          f"(set-up {setup:.2f} s); launches {dict(LAUNCHES)}, per step "
-          f"{per_step}; BN launches per step {bn_per_step}; last metrics "
+          f"(set-up {setup:.2f} s); counted launches {dict(LAUNCHES)}, per "
+          f"step {per_step}; counted BN launches per step {bn_per_step}; "
+          f"GAN_GRAPHS {dict(graphs.GAN_GRAPHS)}; last metrics "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
     if any(c.get("memory_read_fwd") != 4 or c.get("memory_read_bwd") != 4
            or c.get("reschain", 0) != 0 for c in per_step):
@@ -1187,6 +1271,19 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
     if any(c != want_bn for c in bn_per_step):
         raise AssertionError(f"expected {want_bn} BN launches per train "
                              f"step, got {bn_per_step}")
+    want_k = {"memory_read_fwd": 4, "memory_read_bwd": 4}
+    traced = replay_kernels_apart(name)
+    ok = traced == (want_k, want_bn)
+    print(f"train path: a replayed step's kernels in its profiler trace "
+          f"(a process of its own): K1/K2 {traced[0]}, BN {traced[1]} "
+          f"(want {want_k}, {want_bn}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the replayed step ran other K1, K2 or BN "
+                             "kernels than its capture recorded")
+    if results is not None:
+        for kernel in ("memory_read_fwd", "memory_read_bwd"):
+            results[kernel]["launches"] = traced[0][kernel]
+        results["batchnorm"]["launches"] = traced[1]
     after = {k: t.detach() for k, t in snap().items()}
     moved = {k: (after[k] - first[k]).abs().max().item() for k in first}
     print("train path: max change over 3 steps "
@@ -1205,6 +1302,131 @@ def drive_train_path(results, name="clip_bird_dmgan.yml"):
           f"{'ok' if gap <= bound else 'FAIL'}")
     if gap > bound:
         raise AssertionError("EMA rule broken")
+
+
+def check_gan_graphs(card, name="clip_bird_dmgan.yml", dtype_label="bf16",
+                     steps=6):
+    """Phase 4d: the GAN step as CUDA graphs against its eager body, from
+    one state: two ``CondGanTrainer`` of one seed at the full width of
+    ``name`` (with ``GAN.FUSED_TAIL``, which only the EMA's samples use)
+    and the YAML's batch take ``steps`` steps on the same loader batches
+    and noise, A through ``step_fn`` (the graphs), B through
+    ``step_fn.eager`` (which ``GAN_GRAPHS`` does not count) with its Adam
+    made capturable as the graphs make A's (the same update arithmetic).
+    Every step's K1, K2 and BN launches as the wrappers count them (a
+    replay's copied from its capture; phase 4a traces a replay's).
+    Deterministic algorithms on both, so that cuDNN and cuBLAS choose
+    alike; the bound, 1e-6 of a tensor's largest entry, leaves room for
+    an algorithm chosen otherwise under capture.  Then a fused-tail sample
+    of A's EMA G (sampled once before the steps, so its operands were laid
+    out on the weights it started from) against one of a fresh deepcopy of
+    it, and the step timed both ways."""
+    import copy
+    import itertools
+
+    import torch
+
+    from t2igan_torch.ops.kernels import LAUNCHES
+    from t2igan_torch.ops.kernels import batchnorm as kbn
+    from t2igan_torch.train import graphs
+    from t2igan_torch.train.steps import make_sampler
+    from t2igan_torch.train.train_gan import DTYPES, CondGanTrainer
+
+    cfg = fused_cfg(True, name)
+    dtype = DTYPES[dtype_label]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    a = CondGanTrainer(cfg, "cuda", dtype, seed=0)
+    b = CondGanTrainer(cfg, "cuda", dtype, seed=0)
+    for opt in (b.state.g_opt, *b.state.d_opts):
+        graphs.CudaGraphs.prepare(opt, torch.device("cuda"))
+    batches = list(itertools.islice(a.batches(), steps))
+    ids, mask = batches[0]["ids"], batches[0]["mask"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    z = torch.randn((ids.shape[0], cfg.GAN.Z_DIM), generator=g,
+                    device="cuda")
+    eps = torch.randn((ids.shape[0], cfg.GAN.CONDITION_DIM), generator=g,
+                      device="cuda")
+
+    def sample(gen):
+        with torch.no_grad():
+            return make_sampler(cfg, a.clip, gen)(ids, mask, z, eps)[-1]
+
+    sample(a.state.gen_ema.eval())  # operands laid out before the steps
+    bns = 2 * (1 + 4 + (cfg.TREE.BRANCH_NUM - 1) * (2 * cfg.GAN.R_NUM + 1))
+    want_bn = {k: bns for k in ("stats", "apply", "bwd_reduce", "bwd_dx")}
+    graphs.GAN_GRAPHS.clear()
+    losses = {"graphs": [], "eager": []}
+    for i, batch in enumerate(batches):
+        for label, trainer, fn in (("graphs", a, a.step_fn),
+                                   ("eager", b, b.step_fn.eager)):
+            LAUNCHES.clear()
+            kbn.BN_LAUNCHES.clear()
+            out = fn(trainer.state, batch, generator=trainer.noise)
+            losses[label].append({k: float(v) for k, v in out.items()})
+            got = dict(LAUNCHES), dict(kbn.BN_LAUNCHES)
+            if got != ({"memory_read_fwd": 4, "memory_read_bwd": 4},
+                       want_bn):
+                raise AssertionError(f"{label} step {i}: launches {got}, "
+                                     f"want 4 K1, 4 K2 and {want_bn}")
+    counts = dict(graphs.GAN_GRAPHS)
+    torch.use_deterministic_algorithms(False)
+    # A's first step ran eagerly, its second captured; B's eager body
+    # bypasses the counter.
+    want = {"eager": 1, "capture": 1, "replay": steps - 1}
+    if counts != want:
+        raise AssertionError(f"GAN_GRAPHS {counts}, want {want}")
+    loss_gap = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                   for x, y in zip(losses["graphs"], losses["eager"])
+                   for k in y)
+    ta, tb = _module_tensors(a), _module_tensors(b)
+    if ta.keys() != tb.keys():
+        raise AssertionError("the two trainers hold different tensors")
+    gaps = {}
+    for k in ta:
+        x, y = ta[k].double(), tb[k].double()
+        gaps[k] = (x - y).abs().max().item() / max(
+            y.abs().max().item(), 1e-30)
+    worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+    ema = a.state.gen_ema
+    fresh = copy.deepcopy(ema)
+    x, y = sample(ema), sample(fresh)
+    sample_gap = (x.float() - y.float()).abs().max().item()
+    ok = loss_gap <= 1e-6 and gaps[worst[0]] <= 1e-6 and sample_gap == 0
+    print(f"GAN graphs {name} {dtype_label} batch {cfg.TRAIN.BATCH_SIZE}, "
+          f"{steps} steps: GAN_GRAPHS {counts}; 4 K1, 4 K2, {bns} of each "
+          f"BN kernel a step (counted); worst loss gap {loss_gap:.3e}, "
+          "worst tensor "
+          "gaps " + ", ".join(f"{gaps[k]:.3e} ({k})" for k in worst)
+          + f"; EMA sample vs a fresh copy {sample_gap:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    print("  losses graphs / eager by step: " + "; ".join(
+        f"g {x['g_loss']:.6f}/{y['g_loss']:.6f} d0 {x['d_loss0']:.6f}/"
+        f"{y['d_loss0']:.6f}" for x, y in zip(losses["graphs"],
+                                              losses["eager"])))
+    if not ok:
+        raise AssertionError("the GAN step's graphs disagree with its "
+                             "eager body")
+    # Captured again outside the deterministic algorithms (cuda_ms's
+    # warm-up runs the eager step, the capture and a replay).
+    a.step_fn.graphs.drop()
+    ms = {}
+    for label, trainer, fn in (("graphs", a, a.step_fn),
+                               ("eager", b, b.step_fn.eager),
+                               ("eager ", b, b.step_fn.eager),
+                               ("graphs ", a, a.step_fn)):
+        it = itertools.cycle(batches)
+        ms.setdefault(label.strip(), []).append(cuda_ms(
+            lambda: [float(v) for v in fn(trainer.state, next(it),
+                                          generator=trainer.noise).values()],
+            iters=10))
+    print(f"[{card}] GAN step {name} {dtype_label} batch "
+          f"{cfg.TRAIN.BATCH_SIZE}, metrics read each step, ms/step in "
+          f"turns: graphs {ms['graphs']}, eager {ms['eager']}")
+    del a, b
+    torch.cuda.empty_cache()
+    return ms
 
 
 def check_train_step_card_vs_cpu():
@@ -3965,6 +4187,8 @@ def main() -> int:
     timed(drive_geneval)
     timed(drive_train_path, results)
     timed(check_train_step_card_vs_cpu)
+    timed(check_gan_graphs, card)
+    timed(check_gan_graphs, card, "clip_coco_dmgan.yml", "f32")
     timed(drive_damsm_path)
     timed(check_damsm_step_card_vs_cpu)
     timed(drive_checkpoint_loop, card)

@@ -41,7 +41,8 @@ from t2igan_torch.utils.profiling import span
 
 BN_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 """Launches of each BN kernel (``stats``, ``apply``, ``bwd_reduce``,
-``bwd_dx``); reset a count by assigning 0.  A stopgap: it stands apart
+``bwd_dx``); reset a count by assigning 0.  A replayed graph's count is
+copied from its capture, as in ``LAUNCHES``.  A stopgap: it stands apart
 from :data:`t2igan_torch.ops.kernels.LAUNCHES` only until the benchmark's
 train entry expects the BN kernels' launches, and then folds into it."""
 

@@ -114,6 +114,13 @@ def restore_gan_payload(state: GanTrainState, payload: Dict[str, Any],
     state.g_opt.load_state_dict(payload["g_opt"])
     for o, sd in zip(state.d_opts, payload["d_opts"]):
         o.load_state_dict(sd)
+    for opt in (state.g_opt, *state.d_opts):
+        for group in opt.param_groups:
+            # The card's graphs make Adam capturable, which it cannot be
+            # off the card.
+            if group.get("capturable") and not all(
+                    p.is_cuda for p in group["params"]):
+                group["capturable"] = False
     state.step = int(payload["step"])
     noise.set_state(payload["noise"])
     perm = payload["epoch_order"]

@@ -3,7 +3,8 @@ DAMSM CLIP fine-tuning step, the adversarial GAN step and the sampler."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+import functools
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -17,6 +18,7 @@ from t2igan_torch.models.generator import GDCGan, GNet, global_batch_stats
 from t2igan_torch.ops.attention import l2_normalize
 from t2igan_torch.ops.image import resize_nearest
 from t2igan_torch.parallel.mesh import DataMesh
+from t2igan_torch.train.graphs import Phase, StepGraphs, in_span
 from t2igan_torch.train.state import (DamsmOptimizer, GanTrainState,
                                       ema_update)
 from t2igan_torch.utils.profiling import span
@@ -171,6 +173,23 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
     gradients; the backward kernels launch from autograd's thread inside
     it) and ``t2igan.gan.g_step`` (Adam, EMA); the text tower has none.
 
+    On a card, without a mesh group, the step runs as CUDA graphs
+    (:mod:`t2igan_torch.train.graphs`): the first call runs the steps
+    above eagerly (in the span ``t2igan.gan.eager``), a second call with
+    inputs of the same shapes and dtypes captures each phase above (the
+    text tower; 2; each scale's 3; 4's loss; G's gradients; 5) as one
+    graph (in ``t2igan.gan.capture``) and every call of those shapes from
+    then on copies its inputs, drawn noise or given, into the graphs'
+    static inputs and replays them in order, each in its phase's span.
+    The noise is drawn on the host's call as above.  Adam is made
+    capturable (its step count on the card) when the graphs first engage.
+    A call of other shapes, the CPU and a mesh with a group run eagerly.
+    Rebinding a tensor the graphs read (``.to()``, an optimizer's
+    ``load_state_dict``, ``restore_gan_payload``) drops them: load weights
+    with ``copy_`` or ``load_state_dict``.  ``step.eager`` is the eager
+    step itself; ``step.graphs`` the :class:`t2igan_torch.train.graphs.
+    StepGraphs` that holds the capture.
+
     ``dtype=torch.bfloat16`` runs the forwards under ``torch.autocast``
     (parameters, optimizer state and EMA stay f32); losses are f32.
 
@@ -205,81 +224,101 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
     mesh = mesh or DataMesh.single(clip.logit_scale.device)
     rows, live = mesh.gather_rows, mesh.gather_rows_live
 
-    def step(state: GanTrainState, batch, z: Optional[torch.Tensor] = None,
-             eps1: Optional[torch.Tensor] = None,
-             eps2: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None) -> Dict:
-        gen = state.gen
-        device = next(gen.parameters()).device
-
-        def amp():
-            return torch.autocast(device.type, dtype=torch.bfloat16,
-                                  enabled=dtype == torch.bfloat16)
+    def inputs(state: GanTrainState, batch, z, eps1, eps2, generator
+               ) -> Dict[str, torch.Tensor]:
+        """The step's inputs on G's device: the batch's arrays, and the
+        noise, drawn from ``generator`` (z, eps1, eps2, in that order)
+        where not given."""
+        device = next(state.gen.parameters()).device
 
         def put(x):
             return torch.as_tensor(x, device=device)
 
-        ids, mask = put(batch["ids"]), put(batch["mask"])
-        ids2, mask2 = put(batch["ids_2"]), put(batch["mask_2"])
-        cls = put(batch["class_ids"])
-        images = [put(x).float() for x in batch["images"]]
-        b = ids.shape[0]
-        noise = []
-        for t, dim in ((z, cfg.GAN.Z_DIM), (eps1, cfg.GAN.CONDITION_DIM),
-                       (eps2, cfg.GAN.CONDITION_DIM)):
+        out = {"ids": put(batch["ids"]), "mask": put(batch["mask"]),
+               "ids2": put(batch["ids_2"]), "mask2": put(batch["mask_2"]),
+               "cls": put(batch["class_ids"])}
+        for i, x in enumerate(batch["images"]):
+            out[f"image{i}"] = put(x).float()
+        b = out["ids"].shape[0]
+        for name, t, dim in (("z", z, cfg.GAN.Z_DIM),
+                             ("eps1", eps1, cfg.GAN.CONDITION_DIM),
+                             ("eps2", eps2, cfg.GAN.CONDITION_DIM)):
             if t is None:
                 if generator is None:
                     raise ValueError("pass z, eps1 and eps2, or a "
                                      "torch.Generator to draw them from")
                 t = torch.randn((b * mesh.world, dim), generator=generator,
                                 device=generator.device)
-            noise.append(mesh.local_rows(put(t).float()))
-        z, eps1, eps2 = noise
+            out[name] = mesh.local_rows(put(t).float())
+        return out
 
-        with torch.no_grad(), amp():
-            words, sent = clip.encode_text_verbose(torch.cat([ids, ids2]),
-                                                   torch.cat([mask, mask2]))
-        words1, words2 = words.chunk(2)
-        sent1, sent2 = sent.chunk(2)
-        with span("t2igan.gan.g_forward"), amp(), global_batch_stats(mesh):
-            f1, _, mu1, lv1 = gen(z, sent1, words1, mask == 0, eps1,
-                                  return_attn=False, train=True)
-            f2, _, mu2, lv2 = gen(z, sent2, words2, mask2 == 0, eps2,
-                                  return_attn=False, train=True)
-        # The wrong pair of row i is row i + 1 of the global batch.
-        wrong1 = mesh.local_rows(wrong_pair(rows(sent1)))
-        wrong2 = mesh.local_rows(wrong_pair(rows(sent2)))
-
+    def phases(state: GanTrainState, c: Dict) -> List[Phase]:
+        """The step's phases on the tensors of ``c`` (the inputs to start
+        with), in order, each with its span: every tensor that a later
+        phase reads goes through ``c``, and each metric into
+        ``c["metrics"]``."""
+        gen = state.gen
+        device = next(gen.parameters()).device
         metrics: Dict[str, torch.Tensor] = {}
-        for i, (d, opt) in enumerate(zip(state.ds, state.d_opts)):
-            with span("t2igan.gan.d_update"):
-                with amp():
-                    x = torch.cat([images[i], f1[i].detach().float(),
-                                   f2[i].detach().float()])
-                    h_r, h_f1, h_f2 = d.features(
-                        x, update_spectral=True).chunk(3)
-                    uncond = d.uncond_head is not None
-                    logits = [d.cond(h_r, sent1), d.cond(h_f1, sent1),
-                              d.cond(h_r, wrong1),
-                              d.uncond(h_r) if uncond else None,
-                              d.uncond(h_f1) if uncond else None,
-                              d.cond(h_r, sent2), d.cond(h_f2, sent2),
-                              d.cond(h_r, wrong2),
-                              d.uncond(h_r) if uncond else None,
-                              d.uncond(h_f2) if uncond else None]
-                loss1, aux = discriminator_loss(*logits[:5])
-                loss2, _ = discriminator_loss(*logits[5:])
-                d_loss = loss1 + loss2
-                params = [p for p in d.parameters() if p.requires_grad]
-                for p, g in zip(params, torch.autograd.grad(d_loss, params)):
-                    p.grad = g
-                mesh.all_reduce_grads_(params)
-                opt.step()
-                metrics[f"d_loss{i}"] = d_loss.detach()
-                metrics[f"real_acc{i}"] = aux["real_acc"].detach()
-                metrics[f"fake_acc{i}"] = aux["fake_acc"].detach()
+        c["metrics"] = metrics
 
-        with span("t2igan.gan.g_loss"):
+        def amp():
+            return torch.autocast(device.type, dtype=torch.bfloat16,
+                                  enabled=dtype == torch.bfloat16)
+
+        def text():
+            with torch.no_grad(), amp():
+                words, sent = clip.encode_text_verbose(
+                    torch.cat([c["ids"], c["ids2"]]),
+                    torch.cat([c["mask"], c["mask2"]]))
+            c["words1"], c["words2"] = words.chunk(2)
+            c["sent1"], c["sent2"] = sent.chunk(2)
+            # The wrong pair of row i is row i + 1 of the global batch.
+            c["wrong1"] = mesh.local_rows(wrong_pair(rows(c["sent1"])))
+            c["wrong2"] = mesh.local_rows(wrong_pair(rows(c["sent2"])))
+
+        def g_forward():
+            with amp(), global_batch_stats(mesh):
+                c["f1"], _, c["mu1"], c["lv1"] = gen(
+                    c["z"], c["sent1"], c["words1"], c["mask"] == 0,
+                    c["eps1"], return_attn=False, train=True)
+                c["f2"], _, c["mu2"], c["lv2"] = gen(
+                    c["z"], c["sent2"], c["words2"], c["mask2"] == 0,
+                    c["eps2"], return_attn=False, train=True)
+
+        def d_update(i: int):
+            d, opt = state.ds[i], state.d_opts[i]
+            sent1, sent2 = c["sent1"], c["sent2"]
+            wrong1, wrong2 = c["wrong1"], c["wrong2"]
+            with amp():
+                x = torch.cat([c[f"image{i}"], c["f1"][i].detach().float(),
+                               c["f2"][i].detach().float()])
+                h_r, h_f1, h_f2 = d.features(
+                    x, update_spectral=True).chunk(3)
+                uncond = d.uncond_head is not None
+                logits = [d.cond(h_r, sent1), d.cond(h_f1, sent1),
+                          d.cond(h_r, wrong1),
+                          d.uncond(h_r) if uncond else None,
+                          d.uncond(h_f1) if uncond else None,
+                          d.cond(h_r, sent2), d.cond(h_f2, sent2),
+                          d.cond(h_r, wrong2),
+                          d.uncond(h_r) if uncond else None,
+                          d.uncond(h_f2) if uncond else None]
+            loss1, aux = discriminator_loss(*logits[:5])
+            loss2, _ = discriminator_loss(*logits[5:])
+            d_loss = loss1 + loss2
+            params = [p for p in d.parameters() if p.requires_grad]
+            for p, g in zip(params, torch.autograd.grad(d_loss, params)):
+                p.grad = g
+            mesh.all_reduce_grads_(params)
+            opt.step()
+            metrics[f"d_loss{i}"] = d_loss.detach()
+            metrics[f"real_acc{i}"] = aux["real_acc"].detach()
+            metrics[f"fake_acc{i}"] = aux["fake_acc"].detach()
+
+        def g_loss():
+            f1, f2 = c["f1"], c["f2"]
+            sent1, sent2 = c["sent1"], c["sent2"]
             sent12 = torch.cat([sent1, sent2])
             adv = 0.0
             for i, d in enumerate(state.ds):
@@ -297,9 +336,10 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
             cnn1, cnn2 = img12.float().chunk(2)
             regions1, regions2 = live(regions1), live(regions2)
             cnn1, cnn2 = live(cnn1), live(cnn2)
-            words1, words2 = rows(words1), rows(words2)
+            words1, words2 = rows(c["words1"]), rows(c["words2"])
             sent1, sent2 = rows(sent1), rows(sent2)
-            mask, mask2, cls = rows(mask), rows(mask2), rows(cls)
+            mask, mask2, cls = rows(c["mask"]), rows(c["mask2"]), rows(
+                c["cls"])
 
             def damsm_terms(regions, img_code, words, mask, sent):
                 wl0, wl1 = words_loss(regions, words, cls, mask > 0, g1, g2,
@@ -309,29 +349,77 @@ def make_gan_step(cfg: Config, clip: ClipWithRegionHead,
 
             w_a, s_a = damsm_terms(regions1, cnn1, words1, mask, sent1)
             w_b, s_b = damsm_terms(regions2, cnn2, words2, mask2, sent2)
-            kl = kl_loss(mu1, lv1) + kl_loss(mu2, lv2)
+            kl = kl_loss(c["mu1"], c["lv1"]) + kl_loss(c["mu2"], c["lv2"])
             contrast = 0.2 * nt_xent_loss(l2_normalize(cnn1),
                                           l2_normalize(cnn2), 0.5)
-            total = adv + w_a + w_b + s_a + s_b + kl + contrast
+            c["total"] = total = adv + w_a + w_b + s_a + s_b + kl + contrast
+            metrics["g_loss"] = total.detach()
+            for name, val in (("g_adv", adv), ("w_loss", w_a + w_b),
+                              ("s_loss", s_a + s_b), ("kl_loss", kl),
+                              ("contrastive", contrast)):
+                metrics[name] = val.detach()
 
-        with span("t2igan.gan.g_backward"):
+        def g_backward():
             params = [p for p in gen.parameters() if p.requires_grad]
-            for p, g in zip(params, torch.autograd.grad(total, params)):
+            for p, g in zip(params, torch.autograd.grad(c["total"], params)):
                 p.grad = g
             mesh.all_reduce_grads_(params)
-        with span("t2igan.gan.g_step"):
+
+        def g_step():
             state.g_opt.step()
             ema_update(state.gen_ema, gen, ema_decay)
-            state.step += 1
 
-        metrics["g_loss"] = total.detach()
-        for name, val in (("g_adv", adv), ("w_loss", w_a + w_b),
-                          ("s_loss", s_a + s_b), ("kl_loss", kl),
-                          ("contrastive", contrast)):
-            metrics[name] = val.detach()
+        return [(None, text), ("t2igan.gan.g_forward", g_forward),
+                *[("t2igan.gan.d_update", functools.partial(d_update, i))
+                  for i in range(len(state.ds))],
+                ("t2igan.gan.g_loss", g_loss),
+                ("t2igan.gan.g_backward", g_backward),
+                ("t2igan.gan.g_step", g_step)]
+
+    def eager(state: GanTrainState, c: Dict) -> Dict:
+        """The step's body: every phase in its span, then the metrics,
+        averaged over ranks."""
+        for name, fn in phases(state, c):
+            with in_span(name):
+                fn()
+        metrics = c["metrics"]
         return dict(zip(metrics, mesh.mean_over_ranks(
             list(metrics.values()))))
 
+    def results(c: Dict) -> Dict:
+        """The metrics of a replayed step, copied out of the graphs'
+        static outputs (one stacked copy) so that a caller may keep them
+        across steps."""
+        metrics = c["metrics"]
+        return dict(zip(metrics, torch.stack(list(metrics.values()))
+                        .unbind()))
+
+    runner = StepGraphs(eager, phases, results)
+
+    def step(state: GanTrainState, batch, z: Optional[torch.Tensor] = None,
+             eps1: Optional[torch.Tensor] = None,
+             eps2: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> Dict:
+        c = inputs(state, batch, z, eps1, eps2, generator)
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in c.items())
+        out = runner.run(
+            state, c, key, c["ids"].device, not mesh.distributed,
+            [clip, state.gen, state.gen_ema, *state.ds],
+            [state.g_opt, *state.d_opts], [state.gen, state.gen_ema])
+        state.step += 1
+        return out
+
+    def eager_step(state: GanTrainState, batch,
+                   z: Optional[torch.Tensor] = None,
+                   eps1: Optional[torch.Tensor] = None,
+                   eps2: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict:
+        out = eager(state, inputs(state, batch, z, eps1, eps2, generator))
+        state.step += 1
+        return out
+
+    step.eager = eager_step
+    step.graphs = runner
     return step
 
 

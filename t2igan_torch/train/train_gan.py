@@ -34,7 +34,10 @@ reach the card from pinned memory ahead of the step.  CLIP stays frozen.
 Every weight load copies into the existing tensors (``copy_`` or
 ``load_state_dict``), never rebinds ``.data``: the fused tail keys its
 laid-out operands on each tensor's ``(data_ptr, _version)``, and a rebound
-tensor could leave it sampling with stale operands.
+tensor could leave it sampling with stale operands.  On a card the step
+replays CUDA graphs that read and write the train state where it lies
+(:mod:`t2igan_torch.train.graphs`); a rebound tensor, or a resume that
+loads the optimizers' state, drops them and the step captures again.
 
 The default device is ``cuda``; without a card this raises rather than
 falling back to the CPU.
